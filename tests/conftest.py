@@ -22,3 +22,9 @@ if not os.environ.get("DESCRIBEALIGN_TEST_TPU"):
 from describealign_tpu.utils.jaxsetup import setup_jax_cache  # noqa: E402
 
 setup_jax_cache()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where CUDA is "
+        "unavailable (run these on the card)")
