@@ -3,10 +3,11 @@
 Aligns an audio-description track to a video's original soundtrack on an
 NVIDIA H100. The module names mirror the JAX package's, so each function's
 counterpart is found under the same path in `describealign_tpu/`. The port
-imports torch and never jax; the jax-free host modules of the JAX package
-(native C++ loader, host features, outputs, pass-2 DP bridge, constants)
-are shared by import, and the host modules whose JAX package import chain
-reaches jax are re-homed here as twins.
+imports torch and never jax, and nothing of the JAX package: the host
+modules it needs (host features, outputs, pass-2 DP bridge, constants,
+synthetic media) and the host C++ sources (csrc/dp.cpp, csrc/features.cpp)
+are copied into it, and its own loaders build the host library (g++) and
+the CUDA kernels (nvcc) into build/describealign_tpu_torch/.
 
     from describealign_tpu_torch import align_from_pcm
     x, y, sim, path, slope, margin = align_from_pcm(video_i16, audio_i16,

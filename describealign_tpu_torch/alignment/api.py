@@ -1,7 +1,7 @@
 """align_from_pcm() / align(): the single-pair alignment entry points.
 
 Port of describealign_tpu/alignment/api.py's default path: host C++
-features (shared ops/host_features) -> common-bucket padding -> f16 feature
+features (ops/host_features) -> common-bucket padding -> f16 feature
 upload -> the streamed torch matcher (coarse tracks, then the fine kernel
 per 256-block chunk, packed into the dense int16 transport) -> the native
 streaming LIS -> host tail (continuity filter, rescale, compression, L1
@@ -18,12 +18,11 @@ import time
 import numpy as np
 import torch
 
-from describealign_tpu.alignment.outputs import similarity_and_nodes
-from describealign_tpu.alignment.refine_native import refine_dp_flat
-from describealign_tpu.ops.host_features import extract_features_host
-
+from ..ops.host_features import extract_features_host
 from . import continuity, fit, lis, matching, preprocess, refine
 from .native import native_lib
+from .outputs import similarity_and_nodes
+from .refine_native import refine_dp_flat
 
 BUCKET_FRAMES = 210 * 64          # shape bucket quantum (64 s)
 PAD_MARGIN = 210 + preprocess.WINDOW

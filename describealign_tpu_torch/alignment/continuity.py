@@ -13,8 +13,7 @@ import ctypes
 
 import numpy as np
 
-from describealign_tpu.ops.windows import hann_window
-
+from ..ops.windows import hann_window
 from .native import native_lib
 from .preprocess import SAMPLES_PER_NODE
 
@@ -27,7 +26,7 @@ def _conv(x, taps, mode):
     """np.convolve(x, taps, mode) for f64 data via the native tap-major
     kernel; numpy for inputs shorter than the taps."""
     lib = native_lib()
-    if lib is not None and len(x) >= len(taps):
+    if len(x) >= len(taps):
         x = np.ascontiguousarray(x, np.float64)
         taps = np.ascontiguousarray(taps, np.float64)
         same = 1 if mode == 'same' else 0
@@ -82,7 +81,7 @@ def continuity_filter(x, y, threshold=3.0):
     x = np.ascontiguousarray(x, np.float64)
     y = np.ascontiguousarray(y, np.float64)
     lib = native_lib()
-    if lib is not None and len(x) == len(y):
+    if len(x) == len(y):
         taps = np.ascontiguousarray(_half_hann_taps(), np.float64)
         out_x = np.empty_like(x)
         out_y = np.empty_like(y)

@@ -4,7 +4,7 @@ Jax-free twin of describealign_tpu/alignment/fit_tv.py (see it for the
 derivation): stage 1 fits piecewise-constant slopes with a fused-lasso of
 weight RATE_CHANGE_COST, stage 2 piecewise-constant offsets with sparse
 jumps; each L1 fused-lasso runs IRLS around the exact weighted-L2 TV prox
-of native/dp.cpp. Native only: the pure-Python prox fallback is not
+of csrc/dp.cpp. Native only: the pure-Python prox fallback is not
 ported.
 """
 import ctypes

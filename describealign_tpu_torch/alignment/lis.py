@@ -2,9 +2,8 @@
 
 Twin of describealign_tpu/alignment/lis.py's `LisStream` (lis.py:134-345)
 without the sortedcontainers import and the pure-Python fallbacks: the port
-always feeds the native C++ stream (native/dp.cpp), and raises where the
-library is unavailable. Exact reference semantics (describealign.py:
-654-699): candidates in (audio, video, qual) order, a frontier keyed by
+always feeds the native C++ stream (csrc/dp.cpp). Exact reference
+semantics (describealign.py:654-699): candidates in (audio, video, qual) order, a frontier keyed by
 video index holding the best cumulative quality, dominated entries pruned,
 backpointers reconstruct the chain.
 """
@@ -29,9 +28,6 @@ class LisStream:
     def __init__(self, max_video_key):
         self._ctx = None
         self._lib = native_lib()
-        if self._lib is None:
-            raise RuntimeError("native LIS library unavailable (g++ build "
-                               "of describealign_tpu/native failed)")
         if max_video_key + 2 > LIS_STREAM_KEY_CAP:
             raise ValueError(f"video key range {max_video_key} exceeds the "
                              f"native LIS cap {LIS_STREAM_KEY_CAP}")

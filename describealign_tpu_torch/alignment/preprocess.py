@@ -11,8 +11,8 @@ an ulp.
 """
 import torch
 
-from describealign_tpu.constants import TIMESTEPS_PER_SECOND
-from describealign_tpu.ops.windows import hann_window
+from ..constants import TIMESTEPS_PER_SECOND
+from ..ops.windows import hann_window
 
 SAMPLES_PER_NODE = 210 // TIMESTEPS_PER_SECOND  # 21
 WINDOW = 2 * SAMPLES_PER_NODE - 1               # 41

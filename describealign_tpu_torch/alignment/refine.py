@@ -5,8 +5,8 @@ Jax-free twin of describealign_tpu/alignment/refine.py's native path
 and pure-Python fallbacks. build_line_clusters groups smooth-path points
 into colinear clusters and refits each line; build_points_flat applies the
 sub-frame offset correction and scores every audio frame in each cluster's
-(+/-30 s extended) range in C++. The cluster-switch DP that follows is the
-JAX package's shared refine_native.refine_dp_flat.
+(+/-30 s extended) range in C++. The cluster-switch DP that follows is
+refine_native.refine_dp_flat.
 """
 import ctypes
 from collections import defaultdict
@@ -21,21 +21,14 @@ _F32P = ctypes.POINTER(ctypes.c_float)
 _F64P = ctypes.POINTER(ctypes.c_double)
 
 
-def _lib():
-    lib = native_lib()
-    if lib is None:
-        raise RuntimeError("native refinement library unavailable")
-    return lib
-
-
 def _round6(arr):
     """Per-element Python round(v, 6) (correctly-rounded decimal,
     half-to-even on decimal ties) via glibc's %.6f/strtod in C++."""
     arr = np.ascontiguousarray(arr, np.float64)
     out = np.empty_like(arr)
-    if _lib().round_decimals6_f64(arr.ctypes.data_as(_F64P),
-                                  ctypes.c_longlong(arr.size),
-                                  out.ctypes.data_as(_F64P)) != 0:
+    if native_lib().round_decimals6_f64(arr.ctypes.data_as(_F64P),
+                                        ctypes.c_longlong(arr.size),
+                                        out.ctypes.data_as(_F64P)) != 0:
         raise RuntimeError("native round_decimals6_f64 failed")
     return out.tolist()
 
@@ -140,7 +133,7 @@ def build_points_flat(line_clusters, audio_scaled, video_scaled):
     offsets[i]..offsets[i+1] index frame i's points. The first-processed
     cluster wins duplicate (frame, int(video)) points.
     """
-    lib = _lib()
+    lib = native_lib()
     na = len(audio_scaled)
     nv = len(video_scaled)
     amax = float(np.max(audio_scaled[:, 0]))

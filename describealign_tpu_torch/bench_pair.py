@@ -2,8 +2,8 @@
 
 The same pair as bench.py's build_scale_pair (the reference's headline
 benchmark scale): 1320 s of speech-like content, a 202 s lead-in and 8
-narration inserts of 12 s, seed 42. It is built by the jax-free synthetic
-media generator shared with the JAX package (utils/synthmedia.py).
+narration inserts of 12 s, seed 42. It is built by the port's copy of the
+synthetic media generator (utils/synthmedia.py).
 """
 import os
 
@@ -24,7 +24,7 @@ def build_scale_pair(cache=None):
     if cache and os.path.exists(cache):
         z = np.load(cache)
         return z["video"], z["audio"]
-    from describealign_tpu.utils import synthmedia
+    from .utils import synthmedia
     video, audio, _ = synthmedia.build_pair(
         content_seconds=CONTENT_SECONDS, narration=NARRATION,
         lead_in=LEAD_IN_SECONDS, seed=SEED)

@@ -1,14 +1,17 @@
-"""Build and load the port's CUDA kernels: nvcc into a shared library with
-a plain C interface, loaded with ctypes.
+"""Build and load the port's compiled libraries: nvcc (the CUDA kernels)
+and g++ (the host C++ library) into shared libraries with a plain C
+interface, loaded with ctypes.
 
 Each library is compiled at first use into build/describealign_tpu_torch/
 under the checkout (a directory .gitignore lists) and rebuilt when the
-hash of its sources and flags changes. The compile happens on the machine
-with the card: nothing here runs at import time.
+hash of its sources, compiler command and salt changes. The compile
+happens on the machine that runs the code: nothing here runs at import
+time. A failed build raises with the compiler's stderr.
 """
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -19,8 +22,12 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), 'build',
                          'describealign_tpu_torch')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC']
+# -march=native is safe because the library is built on the machine that
+# runs it; the host fingerprint in the stamp rebuilds it on another CPU
+GXX_FLAGS = ['-O3', '-march=native', '-shared', '-fPIC', '-std=c++17']
 
-_LOCK = threading.Lock()
+_LOCKS = {}                     # one per library: builds run in parallel
+_LOCKS_GUARD = threading.Lock()
 
 
 def _nvcc():
@@ -31,19 +38,35 @@ def _nvcc():
     return path
 
 
-def build_library(name, sources):
-    """Path of lib<name>.so built from csrc/<sources>, compiling it if it is
-    missing or its source hash changed. Concurrent builders each write a
-    private file and rename it into place."""
+def _host_fingerprint():
+    """Identifies the CPU a -march=native library was built for."""
+    ident = platform.machine()
+    try:
+        with open('/proc/cpuinfo') as f:
+            for line in f:
+                if line.startswith(('flags', 'Features')):
+                    ident += line
+                    break
+    except OSError:
+        ident += platform.processor()
+    return hashlib.sha1(ident.encode()).hexdigest()[:16]
+
+
+def _build(name, sources, cmd, salt=''):
+    """Path of lib<name>.so built by `cmd + ['-o', out] + sources`,
+    compiling it if it is missing or its stamp differs. Concurrent builders
+    each write a private file and rename it into place."""
     srcs = [os.path.join(CSRC, s) for s in sources]
-    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((' '.join(cmd[1:]) + salt).encode())
     for s in srcs:
         with open(s, 'rb') as f:
             digest.update(f.read())
     digest = digest.hexdigest()
     out = os.path.join(BUILD_DIR, f'lib{name}.so')
     stamp = out + '.sha256'
-    with _LOCK:
+    with _LOCKS_GUARD:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         try:
             with open(stamp) as f:
                 if f.read() == digest and os.path.exists(out):
@@ -52,14 +75,27 @@ def build_library(name, sources):
             pass
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f'{out}.{os.getpid()}.tmp'
-        proc = subprocess.run([_nvcc()] + NVCC_FLAGS + ['-o', tmp] + srcs,
-                              capture_output=True, text=True)
+        proc = subprocess.run(cmd + ['-o', tmp] + srcs, capture_output=True,
+                              text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
+            raise RuntimeError(f"{os.path.basename(cmd[0])} failed for "
+                               f"{name}:\n{proc.stderr}")
         os.replace(tmp, out)
         with open(stamp, 'w') as f:
             f.write(digest)
     return out
+
+
+def build_library(name, sources):
+    """lib<name>.so from the CUDA sources csrc/<sources> (nvcc, sm_90a)."""
+    return _build(name, sources, [_nvcc()] + NVCC_FLAGS)
+
+
+def build_host_library(name, sources):
+    """lib<name>.so from the C++ sources csrc/<sources> (g++), rebuilt
+    when the host CPU changes."""
+    return _build(name, sources, ['g++'] + GXX_FLAGS,
+                  salt=_host_fingerprint())
 
 
 def load_library(name, sources):

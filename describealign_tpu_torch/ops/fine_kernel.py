@@ -4,8 +4,8 @@ Replaces the Pallas TPU kernel describealign_tpu/ops/fine_kernel.py
 (`_kernel`, launched by `fine_match_fused`). For each 210-frame audio block
 it correlates the 5 mean-subtracted features over 41 taps against a
 768-frame video band, gates the Naive-Bayes quality, and keeps a top-8 per
-audio frame (see csrc/fine_match.cu for the design and what bounds it on
-the H100).
+audio frame (see csrc/fine_match.cu for the design - 3xTF32 on the tensor
+cores, one CTA per block - and what bounds it on the H100).
 
 - `fine_match` dispatches on the tensors' device: CPU tensors go to
   `fine_match_plain`; CUDA tensors launch the kernel (built with nvcc at
@@ -76,8 +76,6 @@ def _check(ms_a, norms_a, a_mask, ms_v, norms_v, v_mask, v_starts,
             raise ValueError(f"fine_match: {name} is not contiguous")
     if npad < SEG_V:
         raise ValueError(f"fine_match: Npad={npad} < {SEG_V}")
-    if c > 65535:
-        raise ValueError(f"fine_match: {c} blocks exceed one launch")
 
 
 def fine_match(ms_a, norms_a, a_mask, ms_v, norms_v, v_mask, v_starts,
@@ -97,6 +95,13 @@ def fine_match(ms_a, norms_a, a_mask, ms_v, norms_v, v_mask, v_starts,
                                 v_mask, v_starts, a_starts)
     if dev.type != 'cuda':
         raise ValueError(f"fine_match: unsupported device {dev}")
+    # the kernel stages windows with 16-byte copies from 16-byte aligned rows
+    if ms_a.shape[1] % 4:
+        raise ValueError(f"fine_match: Npad={ms_a.shape[1]} is not a "
+                         f"multiple of 4")
+    for name, t in (('ms_a', ms_a), ('ms_v', ms_v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"fine_match: {name} is not 16-byte aligned")
     lib = load_library()
     c = v_starts.shape[0]
     quals = torch.empty((c, BLOCK, TOP_K), dtype=torch.float32, device=dev)
@@ -116,6 +121,38 @@ def fine_match(ms_a, norms_a, a_mask, ms_v, norms_v, v_mask, v_starts,
 
 
 fine_match.launches = 0
+
+
+def fine_match_work(a_mask, v_mask, v_starts, a_starts):
+    """What one fine_match call on these inputs must do, as (useful FMA,
+    bytes). Useful FMA: per block, every audio row with a_mask > 0 times
+    the video-mask columns of its band [l, l + 558], at 5 features x 41
+    taps each. Bytes: each input frame a block reads, counted once over
+    the call (the feature windows, norms and masks), and the outputs."""
+    npad = a_mask.shape[0]
+    dev = a_mask.device
+    a0 = torch.clamp(a_starts.long(), 0, npad - SEG_A)[:, None]
+    v0 = torch.clamp(v_starts.long(), 0, npad - SEG_V)[:, None]
+    rows = torch.arange(BLOCK, device=dev)
+    vm = (v_mask[v0 + torch.arange(FINE_W, device=dev)] > 0).long()
+    csum = torch.nn.functional.pad(torch.cumsum(vm, 1), (1, 0))
+    in_band = csum[:, rows + 2 * FINE_HALF_BAND + 1] - csum[:, rows]
+    fma = int(torch.sum(in_band * (a_mask[a0 + rows] > 0))) * 5 * WINDOW
+
+    def frames(starts, count, keep=None):
+        used = torch.zeros(npad, dtype=torch.bool, device=dev)
+        used[(starts + torch.arange(count, device=dev)).reshape(-1)] = True
+        return int(torch.sum(used if keep is None else used & keep))
+
+    f32 = 4
+    nbytes = (frames(a0, BLOCK + WINDOW - 1) * 5 * f32          # ms_a
+              + frames(a0, BLOCK) * 6 * f32                     # norms_a, mask
+              + frames(v0, SEG_V) * 5 * f32                     # ms_v
+              + frames(v0, FINE_W) * f32                        # v_mask
+              + frames(v0, FINE_W, v_mask > 0) * 5 * f32        # norms_v
+              + 2 * a_starts.numel() * 4                        # starts
+              + a_starts.numel() * BLOCK * TOP_K * 8)           # outputs
+    return fma, nbytes
 
 
 def _windows(x, starts, count):

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from describealign_tpu.utils.synthmedia import build_pair
+from describealign_tpu_torch.utils.synthmedia import build_pair
 
 pytestmark = pytest.mark.cuda
 

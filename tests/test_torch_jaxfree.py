@@ -1,6 +1,7 @@
 """The port runs where jax is absent: the card machine has no jax,
-sortedcontainers, matplotlib or platformdirs. A subprocess blocks those
-modules and runs the port's align_from_pcm on a small pair on the CPU.
+sortedcontainers, matplotlib or platformdirs, and the port imports nothing
+of the JAX package. A subprocess blocks those modules and the JAX package
+and runs the port's align_from_pcm on a small pair on the CPU.
 chip_smoke.py imports only the port, torch and numpy."""
 import ast
 import os
@@ -9,7 +10,8 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "sortedcontainers", "matplotlib", "platformdirs")
+BLOCKED = ("jax", "jaxlib", "sortedcontainers", "matplotlib", "platformdirs",
+           "describealign_tpu")
 
 _SCRIPT = f"""
 import sys
@@ -19,7 +21,7 @@ import numpy as np
 from describealign_tpu_torch import align_from_pcm
 from describealign_tpu_torch.alignment.native import native_lib
 from describealign_tpu_torch.bench_pair import build_scale_pair
-from describealign_tpu.utils.synthmedia import build_pair
+from describealign_tpu_torch.utils.synthmedia import build_pair
 video, audio, _ = build_pair(content_seconds=14.0, narration=(),
                              lead_in=2.0, seed=3)
 v = np.clip(video, -32768, 32767).astype(np.int16)
@@ -68,4 +70,33 @@ def test_chip_smoke_imports_only_the_port():
     tops = {n.split(".")[0] for n in names}
     assert "describealign_tpu_torch" in tops
     assert tops <= {"describealign_tpu_torch", "torch", "numpy", "contextlib",
-                    "io", "json", "os", "subprocess", "time"}, tops
+                    "io", "json", "os", "subprocess", "threading",
+                    "time"}, tops
+
+
+def _imported_tops(path):
+    """Top-level names of every module `path` imports (relative imports
+    resolve inside their own package and are skipped)."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    tops = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            tops.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            tops.add(node.module.split(".")[0])
+    return tops
+
+
+def test_port_never_imports_the_jax_package():
+    """No module of the port, nor chip_smoke.py, nor the card tests, names
+    the JAX package as an import (the top-level name, not a prefix:
+    describealign_tpu_torch is the port itself)."""
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tests", "test_torch_cuda.py")]
+    for root, _, names in os.walk(os.path.join(REPO,
+                                               "describealign_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 20
+    for path in files:
+        assert "describealign_tpu" not in _imported_tops(path), path

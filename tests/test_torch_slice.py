@@ -177,11 +177,13 @@ def test_retry_kernel_error_propagates(monkeypatch, capsys):
 
 
 def test_bench_pair_is_bench_py_pair(monkeypatch, tmp_path):
-    """The port's bench pair asks the shared generator for bench.py's pair
-    (same arguments) and returns it as int16, cached when asked."""
+    """The port's bench pair asks its copy of the generator for bench.py's
+    pair (same arguments) and returns it as int16, cached when asked; the
+    copy generates the JAX package's pairs bit for bit."""
     import bench
     from describealign_tpu.utils import synthmedia
     from describealign_tpu_torch.bench_pair import build_scale_pair
+    from describealign_tpu_torch.utils import synthmedia as port_synthmedia
     seen = []
 
     def fake_build_pair(**kw):
@@ -190,6 +192,7 @@ def test_bench_pair_is_bench_py_pair(monkeypatch, tmp_path):
         return (rng.normal(0, 4e4, (2, 500)), rng.normal(0, 10, (2, 600)),
                 None)
     monkeypatch.setattr(synthmedia, 'build_pair', fake_build_pair)
+    monkeypatch.setattr(port_synthmedia, 'build_pair', fake_build_pair)
     monkeypatch.setattr(bench, 'BENCH_PAIR_CACHE', str(tmp_path / "b.npz"))
     video, audio, _ = bench.build_scale_pair()
     cache = str(tmp_path / "port" / "pair.npz")
@@ -203,3 +206,11 @@ def test_bench_pair_is_bench_py_pair(monkeypatch, tmp_path):
     assert len(seen) == 2 and v2.dtype == np.int16
     np.testing.assert_array_equal(v2, v)
     np.testing.assert_array_equal(a2, a)
+    monkeypatch.undo()
+    kw = dict(content_seconds=3.0, narration=((1.0, 0.5),), lead_in=0.5,
+              seed=9, channels=2)
+    want = synthmedia.build_pair(**kw)
+    got = port_synthmedia.build_pair(**kw)
+    for x, y in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(x, y)
+    assert got[2] == want[2]
