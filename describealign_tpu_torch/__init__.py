@@ -9,9 +9,11 @@ synthetic media) and the host C++ sources (csrc/dp.cpp, csrc/features.cpp)
 are copied into it, and its own loaders build the host library (g++) and
 the CUDA kernels (nvcc) into build/describealign_tpu_torch/.
 
-    from describealign_tpu_torch import align_from_pcm
+    from describealign_tpu_torch import align_from_pcm, combine
     x, y, sim, path, slope, margin = align_from_pcm(video_i16, audio_i16,
                                                     device="cuda")
+    combine("video.mp4", "audio.mp3")          # or the CLI:
+    # describealign-tpu-torch video.mp4 audio.mp3
 """
 import torch
 
@@ -22,6 +24,12 @@ __version__ = '0.1.0'
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
+
+
+def combine(*args, **kwargs):
+    """Align and combine media pairs; see pipeline.combine."""
+    from .pipeline import combine as _combine
+    return _combine(*args, **kwargs)
 
 
 def align_from_pcm(*args, **kwargs):

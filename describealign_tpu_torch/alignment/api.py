@@ -26,11 +26,24 @@ from .refine_native import refine_dp_flat
 
 BUCKET_FRAMES = 210 * 64          # shape bucket quantum (64 s)
 PAD_MARGIN = 210 + preprocess.WINDOW
+PCM_BUCKET = 210 * BUCKET_FRAMES  # samples; 210 samples per feature frame
 DEFAULT_FIT_BACKEND = 'native'
 
 
 def _bucket_pad(n):
     return -(-(n + PAD_MARGIN) // BUCKET_FRAMES) * BUCKET_FRAMES
+
+
+def _padded_len(s):
+    return (-(-(s + PAD_MARGIN * 210) // PCM_BUCKET)) * PCM_BUCKET
+
+
+def _pad_pcm_i16(pcm_i16):
+    """Zero-pad (channels, samples) PCM to its bucket (api.py:92-96)."""
+    target = _padded_len(pcm_i16.shape[1])
+    if pcm_i16.shape[1] == target:
+        return pcm_i16  # already bucket-padded (decode-ahead thread)
+    return np.pad(pcm_i16, ((0, 0), (0, target - pcm_i16.shape[1])))
 
 
 def _stack_padded(features, nmin, npad):
@@ -86,13 +99,18 @@ def _timer(timings, device):
 
 
 def align_from_pcm(video_pcm_i16, audio_pcm_i16, fit_backend=None,
-                   device='cuda', timings=None):
+                   video_samples=None, audio_samples=None,
+                   combine_prints=False, device='cuda', timings=None):
     """int16 PCM (channels, samples) in, alignment out.
 
-    device: where the matcher runs. timings: an optional dict that
-    receives per-stage seconds ('features', 'coarse_map', 'coarse_dp',
-    'fine', 'lis_tail'); the device is then synchronized at every stage
-    boundary.
+    video_samples/audio_samples: true sample counts when the PCM arrays are
+    already bucket-padded (by combine()'s decode-ahead thread).
+    combine_prints=True emits the reference combine()'s per-stage progress
+    lines (describealign.py:1100-1113) around the feature stages, in
+    addition to align()'s own lines. device: where the matcher runs.
+    timings: an optional dict that receives per-stage seconds ('features',
+    'coarse_map', 'coarse_dp', 'fine', 'lis_tail'); the device is then
+    synchronized at every stage boundary.
 
     Returns (audio_times_s, video_times_s, similarity_percent, path,
     median_slope, coarse_margin) - align()'s 5-tuple plus the margin; the
@@ -101,15 +119,25 @@ def align_from_pcm(video_pcm_i16, audio_pcm_i16, fit_backend=None,
     device = torch.device(device)
     fit_backend = fit_backend or DEFAULT_FIT_BACKEND
     mark = _timer(timings, device) if timings is not None else None
-    print("  memorizing video...        \r", end='')
+    if combine_prints:
+        print("  computing video features... \r", end='')
+    else:
+        print("  memorizing video...        \r", end='')
     # both streams pad to the COMMON bucket
-    sv = video_pcm_i16.shape[1]
-    sa = audio_pcm_i16.shape[1]
+    sv = video_samples or video_pcm_i16.shape[1]
+    sa = audio_samples or audio_pcm_i16.shape[1]
     npad = max(_bucket_pad(sv // 210), _bucket_pad(sa // 210))
     feats_v_np, nv = host_features_padded(video_pcm_i16, sv, npad)
     dev_v = _upload(feats_v_np, device)
+    if combine_prints:
+        # the audio stream was decoded ahead with the video; the
+        # reference's line sequence is kept (describealign.py:1109-1113)
+        print("  reading audio file...       \r", end='')
+        print("  computing audio features...\r", end='')
     feats_a_np, na = host_features_padded(audio_pcm_i16, sa, npad)
     dev_a = _upload(feats_a_np, device)
+    if combine_prints:
+        print("  memorizing video...        \r", end='')
     print("  matching audio...  \r", end='')
     if mark:
         mark('features')
@@ -124,11 +152,14 @@ def align_from_pcm(video_pcm_i16, audio_pcm_i16, fit_backend=None,
 
 def align(video_features, audio_desc_features, video_energy,
           audio_desc_energy, fit_backend=None, video_frames=None,
-          audio_frames=None, device='cuda'):
+          audio_frames=None, device='cuda', timings=None):
     """Feature-list entry (reference-compatible module API): returns the
-    reference's 5-tuple and prints the low-confidence WARNING line."""
+    reference's 5-tuple and prints the low-confidence WARNING line.
+    timings: as in align_from_pcm ('features' is the stacking and the
+    upload)."""
     device = torch.device(device)
     fit_backend = fit_backend or DEFAULT_FIT_BACKEND
+    mark = _timer(timings, device) if timings is not None else None
     na = min(len(f) for f in audio_desc_features)
     nv = min(len(f) for f in video_features)
     if audio_frames is not None:
@@ -142,11 +173,16 @@ def align(video_features, audio_desc_features, video_energy,
     feats_v_np = _stack_padded(video_features, nv, npad)
 
     print("  matching audio...  \r", end='')
-    y, x, margin = _streamed_lis(_upload(feats_a_np, device), na,
-                                 _upload(feats_v_np, device), nv)
+    dev_a = _upload(feats_a_np, device)
+    dev_v = _upload(feats_v_np, device)
+    if mark:
+        mark('features')
+    y, x, margin = _streamed_lis(dev_a, na, dev_v, nv, mark=mark)
     result = _host_stages_from_path(y, x, feats_a_np, feats_v_np, na, nv,
                                     fit_backend, margin=margin,
                                     device=device)
+    if mark:
+        mark('lis_tail')
     warn_low_confidence(result[5])
     return result[:5]
 

@@ -12,9 +12,10 @@ block against a 768-frame video band around each track with the fine
 kernel (ops/fine_kernel.py), gates the rescue track, and packs the
 candidates into the u8-quality transport rows the native LIS reads.
 
-The DP is a plain torch loop in this slice (about 30 small launches per
-audio block and track); long media above COARSE_STREAM_ELEMS is not
-ported yet.
+The DP is a plain torch loop (about 30 small launches per audio block and
+track). Above COARSE_STREAM_ELEMS score-map elements (long media: a
+95-minute film) it runs streamed, with the score map in 64-block tiles and
+one checkpointed cost row per tile, as the JAX package does.
 """
 import torch
 
@@ -149,9 +150,118 @@ def _coarse_dp(p_map):
     return path.to(torch.int32), cost[-1][path[-1]]
 
 
+def _coarse_dp_streamed(desc_a, desc_v_list, nb, suppress_paths=()):
+    """Memory-bounded twin of _block_scores_local + _coarse_dp
+    (matching.py:294-375): the score map is computed in COARSE_CHUNK-block
+    tiles inside the DP, the forward pass keeps the cost row from before
+    each chunk, and the backtrace recomputes each chunk's tile and cost
+    rows from that checkpoint. Twice the score compute, for (chunks + 64)
+    rows of memory instead of 3 x (nb, kv). The same _chunk_scores,
+    _dp_relax and _dp_backstep as the materialized pair, so the paths and
+    the score are bit-equal to it.
+
+    suppress_paths: earlier k-best tracks' (nb,) lane paths; lanes within
+    SUPPRESS_LANES of them score -1e30.
+    """
+    kv = desc_v_list[0].shape[0]
+    dev = desc_a.device
+    nb_pad = -(-nb // COARSE_CHUNK) * COARSE_CHUNK
+    n_chunks = nb_pad // COARSE_CHUNK
+    desc_a = torch.nn.functional.pad(
+        desc_a, (0, 0, 0, nb_pad * COARSE_PER_BLOCK - desc_a.shape[0]))
+    lanes_i = torch.arange(kv, dtype=torch.int32, device=dev)[None, :]
+    lanes = torch.arange(kv, dtype=torch.float32, device=dev)
+    slope = DP_SLOPE_COST * lanes
+    floor = torch.full((COARSE_PER_BLOCK,), -1e30, device=dev)
+    neg = torch.tensor(-1e30, dtype=torch.float32, device=dev)
+
+    def chunk_rows(c, prev):
+        """Cost rows of chunk c's true blocks, from the row before it.
+        Rows past nb are never computed: the loop stops at nb, so the
+        last row is cost[nb - 1] (the JAX scan passes it through)."""
+        b0 = c * COARSE_CHUNK
+        n = min(COARSE_CHUNK, nb - b0)
+        s = _chunk_scores(desc_a, desc_v_list, c)[:n]
+        for vp in suppress_paths:
+            s = torch.where(torch.abs(lanes_i - vp[b0:b0 + n, None])
+                            <= SUPPRESS_LANES, neg, s)
+        rows = torch.empty((n, kv), dtype=torch.float32, device=dev)
+        for r in range(n):
+            prev = _dp_relax(prev, slope, floor) + s[r]
+            rows[r] = prev
+        return rows
+
+    ckpts = torch.empty((n_chunks, kv), dtype=torch.float32, device=dev)
+    prev = torch.zeros(kv, dtype=torch.float32, device=dev)
+    for c in range(n_chunks):
+        ckpts[c] = prev                      # the PRE-chunk row
+        prev = chunk_rows(c, prev)[-1]
+    o = torch.argmax(prev)
+    score = prev[o]
+    path = torch.empty(nb, dtype=torch.int64, device=dev)
+    path[-1] = o
+    for c in range(n_chunks - 1, -1, -1):
+        rows = chunk_rows(c, ckpts[c])
+        b0 = c * COARSE_CHUNK
+        for r in range(rows.shape[0] - 1, -1, -1):
+            if b0 + r < nb - 1:
+                o = _dp_backstep(o, rows[r], lanes)
+                path[b0 + r] = o
+    return path.to(torch.int32), score
+
+
+def _k_best_tracks(desc_a, desc_v_list, nb, streamed, mark=None):
+    """The N_TRACKS k-best coarse tracks (matching.py:1132-1152): the DP
+    run again with each earlier track's lanes (+/- SUPPRESS_LANES)
+    suppressed. streamed selects _coarse_dp_streamed, else the score map is
+    materialized and run through _coarse_dp; both give bit-equal results.
+    Returns (v_paths: list of (nb,) i32, scores: list of f32 scalars)."""
+    v_paths, scores = [], []
+    if streamed:
+        # the score map is computed inside the streamed DP, so
+        # 'coarse_map' covers the descriptors only
+        if mark:
+            mark('coarse_map')
+        for _ in range(N_TRACKS):
+            v_path, score = _coarse_dp_streamed(desc_a, desc_v_list, nb,
+                                                v_paths)
+            v_paths.append(v_path)
+            scores.append(score)
+        return v_paths, scores
+    dev = desc_a.device
+    p_map = _block_scores_local(desc_a, desc_v_list)
+    if mark:
+        mark('coarse_map')
+    lanes = torch.arange(p_map.shape[1], dtype=torch.int32,
+                         device=dev)[None, :]
+    suppressed = p_map
+    for _ in range(N_TRACKS):
+        v_path, score = _coarse_dp(suppressed)
+        v_paths.append(v_path)
+        scores.append(score)
+        suppressed = torch.where(
+            torch.abs(lanes - v_path[:, None]) <= SUPPRESS_LANES,
+            torch.tensor(-1e30, dtype=torch.float32, device=dev), suppressed)
+    return v_paths, scores
+
+
+def _coarse_margin(scores, a_mask, nb):
+    """(track-1 score - track-2 score) / anchor blocks, the audio blocks
+    that contribute any eligible coarse descriptor."""
+    anchor_rows = a_mask[torch.arange(nb * COARSE_PER_BLOCK,
+                                      device=a_mask.device) * COARSE_STRIDE]
+    n_anchor = torch.sum(torch.any(
+        anchor_rows.reshape(nb, COARSE_PER_BLOCK), dim=1).to(torch.int32))
+    return ((scores[0] - scores[1])
+            / torch.clamp(n_anchor, min=1).to(torch.float32))
+
+
 def _coarse_tracks(ms_a, norms_a, energy_a, len_a,
                    ms_v, norms_v, energy_v, len_v, nf=None, mark=None):
     """Masks + coarse score map + k-best DP tracks (matching.py:1100-1177).
+    Above COARSE_STREAM_ELEMS score-map elements (long media) the DP runs
+    streamed, as in the JAX package, so both take the same branch for
+    every input.
 
     Returns (a_mask, v_mask, starts_tracks (T, B) i32 band starts,
     centers (B,) best-track offset frames, margin f32 scalar), where
@@ -169,33 +279,9 @@ def _coarse_tracks(ms_a, norms_a, energy_a, len_a,
     ka = desc_a.shape[0]
     kv = desc_v_list[0].shape[0]
     nb = ka // COARSE_PER_BLOCK
-    if nb * kv > COARSE_STREAM_ELEMS:
-        raise NotImplementedError(
-            f"coarse score map of {nb} x {kv} exceeds COARSE_STREAM_ELEMS="
-            f"{COARSE_STREAM_ELEMS}: the streamed coarse DP for long media "
-            f"is not ported yet")
-
-    p_map = _block_scores_local(desc_a, desc_v_list)
-    if mark:
-        mark('coarse_map')
-    lanes = torch.arange(kv, dtype=torch.int32, device=dev)[None, :]
-    v_paths, scores = [], []
-    suppressed = p_map
-    for _ in range(N_TRACKS):
-        v_path, score = _coarse_dp(suppressed)
-        v_paths.append(v_path)
-        scores.append(score)
-        suppressed = torch.where(
-            torch.abs(lanes - v_path[:, None]) <= SUPPRESS_LANES,
-            torch.tensor(-1e30, dtype=torch.float32, device=dev), suppressed)
-
-    # anchor blocks: audio blocks contributing any eligible coarse descriptor
-    anchor_rows = a_mask[torch.arange(ka, device=dev) * COARSE_STRIDE]
-    n_anchor = torch.sum(torch.any(
-        anchor_rows[:nb * COARSE_PER_BLOCK].reshape(nb, COARSE_PER_BLOCK),
-        dim=1).to(torch.int32))
-    margin = ((scores[0] - scores[1])
-              / torch.clamp(n_anchor, min=1).to(torch.float32))
+    v_paths, scores = _k_best_tracks(desc_a, desc_v_list, nb,
+                                     nb * kv > COARSE_STREAM_ELEMS, mark)
+    margin = _coarse_margin(scores, a_mask, nb)
 
     blocks = torch.arange(nb, dtype=torch.int32, device=dev) * BLOCK
     starts_tracks = []

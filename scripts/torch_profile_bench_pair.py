@@ -2,12 +2,14 @@
 """Where the PyTorch port's time goes on the bench pair, on a CUDA device.
 
 Runs describealign_tpu_torch's align_from_pcm on the 22-min video /
-27-min description bench pair: one warm-up, --runs timed end-to-end runs,
---splits runs with the per-stage split (align_from_pcm(timings=...)), then
-one run under torch.profiler. Run from the repo root on a machine with an
-NVIDIA GPU:
+27-min description bench pair (or, with --pair film, the feature-level
+entry align() on the 95-min film / 101.4-min description of
+describealign_tpu_torch.film_pair, whose coarse DP runs streamed): one
+warm-up, --runs timed end-to-end runs, --splits runs with the per-stage
+split (timings=...), then one run under torch.profiler. Run from the repo
+root on a machine with an NVIDIA GPU:
 
-    python scripts/torch_profile_bench_pair.py [--runs 5] [--splits 3]
+    python scripts/torch_profile_bench_pair.py [--pair film] [--runs 5] [--splits 3]
 
 Prints lines starting with PROFILE: the card (nvidia-smi name and power
 limit), each run's e2e seconds and their median, each split, the profiled
@@ -42,9 +44,11 @@ def main():
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--splits", type=int, default=3)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--pair", choices=("bench", "film"), default="bench")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
+    from describealign_tpu_torch import film_pair
     from describealign_tpu_torch.alignment import api
     from describealign_tpu_torch.bench_pair import build_scale_pair
 
@@ -54,11 +58,21 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     print(f"PROFILE card {smi} | torch {torch.__version__} | CUDA "
           f"{torch.version.cuda}", flush=True)
-    v, a = build_scale_pair(os.path.join(REPO, "build", "bench_pair_i16.npz"))
+    if args.pair == "bench":
+        v, a = build_scale_pair(os.path.join(REPO, "build",
+                                             "bench_pair_i16.npz"))
+
+        def align(**kw):
+            api.align_from_pcm(v, a, device="cuda", **kw)
+    else:
+        v, a = film_pair.build_film_features()
+
+        def align(**kw):
+            api.align(v, a, v[0], a[0], device="cuda", **kw)
 
     def run(**kw):
         with contextlib.redirect_stdout(io.StringIO()):
-            api.align_from_pcm(v, a, device="cuda", **kw)
+            align(**kw)
         torch.cuda.synchronize()
 
     run()                                               # warm-up

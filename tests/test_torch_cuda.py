@@ -69,3 +69,21 @@ def test_fine_kernel_matches_plain_on_card(cuda_device):
         assert np.percentile(rel, 99) < 1e-3
         # the worst candidate too: qualities reach QUAL_MAX=50
         assert err.max() < 1e-2
+
+
+def test_streamed_dp_matches_materialized_on_card(cuda_device):
+    """The streamed coarse DP (long media) against the materialized one on
+    CUDA tensors, k-best with suppression: bit-equal paths and scores (the
+    same tiles, relaxations and backsteps in the same order)."""
+    from describealign_tpu_torch.alignment import matching as tm
+    rng = np.random.default_rng(5)
+    nb, kv = 150, 1200
+    desc_a = torch.from_numpy(rng.standard_normal(
+        (nb * tm.COARSE_PER_BLOCK + 3, 128)).astype(np.float32)).to(cuda_device)
+    desc_v = [torch.from_numpy(rng.standard_normal((kv, 128)).astype(
+        np.float32)).to(cuda_device) for _ in tm.SUB_LANE_SHIFTS]
+    s_paths, s_scores = tm._k_best_tracks(desc_a, desc_v, nb, streamed=True)
+    m_paths, m_scores = tm._k_best_tracks(desc_a, desc_v, nb, streamed=False)
+    for sp, mp in zip(s_paths, m_paths):
+        assert torch.equal(sp, mp)
+    assert [float(x) for x in s_scores] == [float(x) for x in m_scores]

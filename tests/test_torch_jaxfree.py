@@ -1,7 +1,8 @@
 """The port runs where jax is absent: the card machine has no jax,
 sortedcontainers, matplotlib or platformdirs, and the port imports nothing
 of the JAX package. A subprocess blocks those modules and the JAX package
-and runs the port's align_from_pcm on a small pair on the CPU.
+and runs the port's align_from_pcm, then combine() and the CLI's
+--version, on a small pair on the CPU.
 chip_smoke.py imports only the port, torch and numpy."""
 import ast
 import os
@@ -29,6 +30,29 @@ a = np.clip(audio, -32768, 32767).astype(np.int16)
 out = align_from_pcm(v, a, device="cpu")
 assert len(out) == 6, len(out)
 assert abs(float(out[0][0] - out[1][0]) - 2.0) < 0.05, out[0][0] - out[1][0]
+
+# combine() in stretch mode on a WAV pair: the .txt report, no .png, and
+# one WARNING line naming matplotlib; then the CLI's --version
+import contextlib, io, os, tempfile
+from describealign_tpu_torch import combine
+from describealign_tpu_torch.cli import command_line_interface
+from describealign_tpu_torch.media.decode import write_wav
+tmp = tempfile.mkdtemp()
+write_wav(os.path.join(tmp, "film.wav"), np.tile(v, (2, 1)))
+write_wav(os.path.join(tmp, "desc.wav"), np.tile(a, (2, 1)))
+with contextlib.redirect_stdout(io.StringIO()) as buf:
+    combine([os.path.join(tmp, "film.wav")], [os.path.join(tmp, "desc.wav")],
+            stretch_audio=True, yes=True, output_dir=os.path.join(tmp, "o"),
+            alignment_dir=os.path.join(tmp, "p"), device="cpu")
+    command_line_interface(["--version"])
+printed = buf.getvalue()
+warned = [ln for ln in printed.splitlines()
+          if "WARNING" in ln and "matplotlib" in ln]
+assert len(warned) == 1, printed
+assert "Start Offset:" in open(os.path.join(tmp, "p", "film.txt")).read()
+assert not os.path.exists(os.path.join(tmp, "p", "film.png"))
+assert os.path.getsize(os.path.join(tmp, "o", "ad_film.wav")) > 1e5
+assert "version: " in printed and "content hash: " in printed, printed
 loaded = [m for m in sys.modules
           if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None]
 assert not loaded, loaded
@@ -70,8 +94,8 @@ def test_chip_smoke_imports_only_the_port():
     tops = {n.split(".")[0] for n in names}
     assert "describealign_tpu_torch" in tops
     assert tops <= {"describealign_tpu_torch", "torch", "numpy", "contextlib",
-                    "io", "json", "os", "subprocess", "threading",
-                    "time"}, tops
+                    "io", "json", "os", "subprocess", "sys", "tempfile",
+                    "threading", "time", "wave"}, tops
 
 
 def _imported_tops(path):

@@ -1,0 +1,344 @@
+"""Port parity: combine() and the CLI, the JAX package's against the port's
+on the CPU.
+
+The two packages run on the same WAV pairs (the 40-s pair of
+tests/test_pipeline.py) into separate directories. Their alignments are
+bit-equal (tests/test_torch_slice.py), and the stretch, mux and report code
+is the same code, so the output media must be byte-identical, and the
+.txt reports and the printed lines identical once the run directories
+are named alike; the reports' `Version:` and `Script Hash:` lines name
+each package and are left out. The port runs every directory pair through
+its sequential loop; the JAX package's batched loop must give the same
+bytes (tests/test_pipeline.py holds its two loops equal).
+"""
+import json
+import os
+import stat
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from describealign_tpu import cli as jcli
+from describealign_tpu import pipeline as jpipe
+from describealign_tpu.media import ffmpeg as jff
+from describealign_tpu.media.decode import write_wav
+from describealign_tpu_torch import cli as tcli
+from describealign_tpu_torch import pipeline as tpipe
+from describealign_tpu_torch.alignment import api as tapi
+from describealign_tpu_torch.media import ffmpeg as tff
+from tests.synth import build_pair, speech_like
+
+FAKEBIN = os.path.join(os.path.dirname(__file__), "fakebin.py")
+
+
+@pytest.fixture(scope="module")
+def wav_pair(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("media")
+    video, audio, _ = build_pair(content_seconds=40.0, narration=(),
+                                 lead_in=6.0, seed=3, channels=2)
+    video_wav, audio_wav = tmp / "episode_1.wav", tmp / "described_1.wav"
+    write_wav(video_wav, video)
+    write_wav(audio_wav, audio)
+    return str(video_wav), str(audio_wav)
+
+
+def _run(fn, capsys, *args, **kwargs):
+    """stdout of fn(*args, **kwargs)."""
+    capsys.readouterr()
+    fn(*args, **kwargs)
+    return capsys.readouterr().out
+
+
+def _dirs(root):
+    return str(root / "out"), str(root / "plots")
+
+
+def _same_text(got, want, got_root, want_root):
+    """Equal once both run directories read <run> and the Version /
+    Script Hash / Processing-files lines (one per package) are left out."""
+    def norm(text, root):
+        text = text.replace(str(root), "<run>")
+        return [ln for ln in text.split("\n")
+                if not ln.startswith(("Version:", "Script Hash:",
+                                      "Processing files with v"))]
+    assert norm(got, got_root) == norm(want, want_root)
+
+
+def _read(path, mode="r"):
+    with open(path, mode) as f:
+        return f.read()
+
+
+def _assert_same_run(got_root, want_root, stem, out_name):
+    for root in (got_root, want_root):
+        assert os.path.exists(root / "plots" / f"{stem}.png")
+    assert (_read(got_root / "out" / out_name, "rb")
+            == _read(want_root / "out" / out_name, "rb"))
+    _same_text(_read(got_root / "plots" / f"{stem}.txt"),
+               _read(want_root / "plots" / f"{stem}.txt"),
+               got_root, want_root)
+
+
+def _on_cpu(monkeypatch):
+    """The port's combine() with device='cpu', as the CLI reaches it."""
+    real = tpipe.combine
+    monkeypatch.setattr(tpipe, "combine",
+                        lambda *a, **k: real(*a, device="cpu", **k))
+
+
+@pytest.fixture(scope="module")
+def jax_stretch(wav_pair, tmp_path_factory):
+    """The JAX CLI in stretch mode on the pair: (root, printed)."""
+    root = tmp_path_factory.mktemp("jax_stretch")
+    out, plots = _dirs(root)
+    import io
+    from contextlib import redirect_stdout
+    with redirect_stdout(io.StringIO()) as buf:
+        jcli.command_line_interface(list(wav_pair) + [
+            "--stretch_audio", "--yes", "--output_dir", out,
+            "--alignment_dir", plots])
+    return root, buf.getvalue()
+
+
+def test_combine_stretch_matches_jax(wav_pair, jax_stretch, tmp_path,
+                                     capsys):
+    want_root, want_printed = jax_stretch
+    out, plots = _dirs(tmp_path)
+    printed = _run(tpipe.combine, capsys, [wav_pair[0]], [wav_pair[1]],
+                   stretch_audio=True, yes=True, output_dir=out,
+                   alignment_dir=plots, device="cpu")
+    _assert_same_run(tmp_path, want_root, "episode_1", "ad_episode_1.wav")
+    _same_text(printed, want_printed, tmp_path, want_root)
+    assert "  computing video features... \r" in printed
+
+
+def test_cli_wav_pair_matches_jax_cli(wav_pair, jax_stretch, tmp_path,
+                                      capsys, monkeypatch):
+    want_root, want_printed = jax_stretch
+    _on_cpu(monkeypatch)
+    out, plots = _dirs(tmp_path)
+    printed = _run(tcli.command_line_interface, capsys, list(wav_pair) + [
+        "--stretch_audio", "--yes", "--output_dir", out, "--alignment_dir",
+        plots])
+    _assert_same_run(tmp_path, want_root, "episode_1", "ad_episode_1.wav")
+    _same_text(printed, want_printed, tmp_path, want_root)
+
+
+def test_combine_no_pitch_correction_matches_jax(wav_pair, tmp_path,
+                                                 capsys):
+    runs = {}
+    for name, combine, kw in (("jax", jpipe.combine, {}),
+                              ("port", tpipe.combine, {"device": "cpu"})):
+        out, plots = _dirs(tmp_path / name)
+        runs[name] = _run(combine, capsys, [wav_pair[0]], [wav_pair[1]],
+                          stretch_audio=True, yes=True,
+                          no_pitch_correction=True, output_dir=out,
+                          alignment_dir=plots, **kw)
+    _assert_same_run(tmp_path / "port", tmp_path / "jax", "episode_1",
+                     "ad_episode_1.wav")
+    _same_text(runs["port"], runs["jax"], tmp_path / "port",
+               tmp_path / "jax")
+
+
+def test_combine_resume_skips_existing(wav_pair, tmp_path, capsys):
+    printed = {}
+    for name, combine, kw in (("jax", jpipe.combine, {}),
+                              ("port", tpipe.combine, {"device": "cpu"})):
+        out, plots = _dirs(tmp_path / name)
+        os.makedirs(out)
+        with open(os.path.join(out, "ad_episode_1.wav"), "wb") as f:
+            f.write(b"\0" * 200000)        # > 1e5 bytes: treated as done
+        printed[name] = _run(combine, capsys, [wav_pair[0]], [wav_pair[1]],
+                             stretch_audio=True, yes=True, output_dir=out,
+                             alignment_dir=plots, **kw)
+        assert os.path.getsize(os.path.join(out, "ad_episode_1.wav")) \
+            == 200000
+    assert "output file already exists, skipping..." in printed["port"]
+    _same_text(printed["port"], printed["jax"], tmp_path / "port",
+               tmp_path / "jax")
+
+
+def test_alignment_cache_reused(wav_pair, tmp_path, monkeypatch):
+    plots = str(tmp_path / "plots")
+    tpipe.combine([wav_pair[0]], [wav_pair[1]], stretch_audio=True, yes=True,
+                  output_dir=str(tmp_path / "o1"), alignment_dir=plots,
+                  device="cpu")
+
+    def boom(*a, **k):
+        raise AssertionError("align_from_pcm must not run on a cache hit")
+
+    monkeypatch.setattr(tapi, "align_from_pcm", boom)
+    tpipe.combine([wav_pair[0]], [wav_pair[1]], stretch_audio=True, yes=True,
+                  output_dir=str(tmp_path / "o2"), alignment_dir=plots,
+                  device="cpu")
+    assert (_read(tmp_path / "o1" / "ad_episode_1.wav", "rb")
+            == _read(tmp_path / "o2" / "ad_episode_1.wav", "rb"))
+
+
+def test_directory_two_pairs_matches_jax_batched(tmp_path, monkeypatch):
+    vids, auds = tmp_path / "vids", tmp_path / "auds"
+    vids.mkdir()
+    auds.mkdir()
+    for idx, seed in ((1, 3), (2, 11)):
+        video, audio, _ = build_pair(content_seconds=40.0, narration=(),
+                                     lead_in=6.0, seed=seed, channels=2)
+        write_wav(vids / f"show_ep{idx}.wav", video)
+        write_wav(auds / f"show_ep{idx}_described.wav", audio)
+    import describealign_tpu.alignment.api as japi
+    calls = {"batch": 0, "single": 0}
+    real_batch = japi.align_batch_from_pcm
+    real_single = tapi.align_from_pcm
+
+    def count_batch(*a, **k):
+        calls["batch"] += 1
+        return real_batch(*a, **k)
+
+    def count_single(*a, **k):
+        calls["single"] += 1
+        return real_single(*a, **k)
+
+    monkeypatch.setattr(japi, "align_batch_from_pcm", count_batch)
+    monkeypatch.setattr(tapi, "align_from_pcm", count_single)
+    monkeypatch.delenv("DESCRIBEALIGN_BATCH", raising=False)
+    for name, combine, kw in (("jax", jpipe.combine, {}),
+                              ("port", tpipe.combine, {"device": "cpu"})):
+        out, plots = _dirs(tmp_path / name)
+        combine(str(vids), str(auds), stretch_audio=True, yes=True,
+                output_dir=out, alignment_dir=plots, **kw)
+    assert calls == {"batch": 1, "single": 2}
+    for idx in (1, 2):
+        _assert_same_run(tmp_path / "port", tmp_path / "jax",
+                         f"show_ep{idx}", f"ad_show_ep{idx}.wav")
+
+
+@pytest.fixture()
+def fake_ffmpeg(tmp_path, monkeypatch):
+    """tests/fakebin.py as the ffmpeg and ffprobe of both packages."""
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    for tool in ("ffmpeg", "ffprobe"):
+        shim = bindir / tool
+        shim.write_text(f"#!/bin/sh\nexec '{sys.executable}' '{FAKEBIN}' "
+                        f"{tool} \"$@\"\n")
+        shim.chmod(shim.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setenv("DESCRIBEALIGN_FFMPEG", str(bindir / "ffmpeg"))
+    monkeypatch.setenv("DESCRIBEALIGN_FFPROBE", str(bindir / "ffprobe"))
+    jff._reset_discovery_cache()
+    tff._reset_discovery_cache()
+    yield
+    jff._reset_discovery_cache()
+    tff._reset_discovery_cache()
+
+
+def test_default_mode_matches_jax(fake_ffmpeg, tmp_path, capsys):
+    """Default (setts) mode: the executed ffmpeg argv and the output are
+    the JAX run's (tests/test_default_mode_e2e.py's pair: a 6 s intro, so
+    the video is cut at a keyframe)."""
+    content = speech_like(40.0, seed=9)
+    intro = speech_like(6.0, seed=1009, amp=5000.0)
+    video_file = tmp_path / "episode_1.mp4"      # WAV payload
+    audio_file = tmp_path / "described_1.wav"
+    write_wav(video_file, np.concatenate([intro, content])[None, :])
+    write_wav(audio_file, content[None, :])
+    printed = {}
+    for name, combine, kw in (("jax", jpipe.combine, {}),
+                              ("port", tpipe.combine, {"device": "cpu"})):
+        out, plots = _dirs(tmp_path / name)
+        printed[name] = _run(combine, capsys, [str(video_file)],
+                             [str(audio_file)], yes=True, output_dir=out,
+                             alignment_dir=plots, **kw)
+    port, jax_root = tmp_path / "port", tmp_path / "jax"
+    args = [json.loads(_read(root / "out" / "ad_episode_1.mp4.ffargs.json")
+                       .replace(str(root), "<run>"))
+            for root in (port, jax_root)]
+    assert args[0] == args[1]
+    assert any(a.startswith("setts=pts='TS+(0") for a in args[0])
+    _assert_same_run(port, jax_root, "episode_1", "ad_episode_1.mp4")
+    _same_text(printed["port"], printed["jax"], port, jax_root)
+
+
+def test_stretch_required_for_audio_pairs(wav_pair, fake_ffmpeg, tmp_path):
+    errors = []
+    for name, combine, kw in (("jax", jpipe.combine, {}),
+                              ("port", tpipe.combine, {"device": "cpu"})):
+        out, plots = _dirs(tmp_path / name)
+        with pytest.raises(RuntimeError) as exc:
+            combine([wav_pair[0]], [wav_pair[1]], yes=True, output_dir=out,
+                    alignment_dir=plots, **kw)
+        errors.append(str(exc.value))
+    assert errors[0] == errors[1]
+    assert "--stretch_audio is required" in errors[1]
+
+
+def test_cli_version(capsys):
+    out = _run(tcli.command_line_interface, capsys, ["--version"])
+    assert "version: 0.1.0" in out
+    assert "content hash:" in out
+    assert os.path.join("describealign_tpu_torch") in out.split("path: ")[1]
+
+
+def test_cli_usage_without_arguments(capsys):
+    """No GUI in the port: the JAX CLI's message for a missing GUI, then
+    the usage line."""
+    out = _run(tcli.command_line_interface, capsys, [])
+    assert out == ("Can't launch GUI and arguments missing.\n"
+                   "GUI dependencies missing.\n"
+                   "usage: describealign-tpu-torch video_file.mp4 "
+                   "audio_file.mp3\n")
+
+
+def test_cli_fit_backend_highs(wav_pair, tmp_path, monkeypatch):
+    """--fit_backend reaches the fit for the run and no further."""
+    from describealign_tpu_torch.alignment import fit as tfit
+    _on_cpu(monkeypatch)
+    seen = []
+    real = tfit.solve_l1_fit
+
+    def spy(x, y, backend='native'):
+        seen.append(backend)
+        return real(x, y, backend=backend)
+
+    monkeypatch.setattr(tfit, "solve_l1_fit", spy)
+    tcli.command_line_interface(list(wav_pair) + [
+        "--stretch_audio", "--yes", "--fit_backend", "highs",
+        "--output_dir", str(tmp_path / "o"), "--alignment_dir",
+        str(tmp_path / "p")])
+    assert seen and set(seen) == {"highs"}
+    assert tapi.DEFAULT_FIT_BACKEND == "native"
+    assert os.path.exists(tmp_path / "p" / "episode_1.txt")
+
+
+def test_cli_fit_backend_device_names_the_roadmap(wav_pair, tmp_path):
+    with pytest.raises(SystemExit, match="ROADMAP A13"):
+        tcli.command_line_interface(list(wav_pair) + [
+            "--stretch_audio", "--yes", "--fit_backend", "device",
+            "--output_dir", str(tmp_path)])
+
+
+def test_cli_warmup_builds_or_names_nvcc(capsys):
+    """--warmup builds the CUDA kernel and the host library; where nvcc is
+    missing (here) the build raises naming it."""
+    import shutil
+    if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("nvcc is present: the warm-up would build the kernel")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tcli.command_line_interface(["--warmup", "1"])
+
+
+def test_cli_without_cuda_fails_naming_cuda(wav_pair, tmp_path, monkeypatch):
+    """Unwrapped, the CLI runs on the card: without CUDA it raises before
+    any alignment and never runs on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available here: the CLI would run on the card")
+
+    def boom(*a, **k):
+        raise AssertionError("the CLI ran the matcher without CUDA")
+
+    monkeypatch.setattr(tapi, "align_from_pcm", boom)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tcli.command_line_interface(list(wav_pair) + [
+            "--stretch_audio", "--yes", "--output_dir", str(tmp_path / "o"),
+            "--alignment_dir", str(tmp_path / "p")])
+    assert not os.path.exists(tmp_path / "o")

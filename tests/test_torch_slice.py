@@ -68,6 +68,29 @@ def test_align_from_pcm_parity(name, capsys):
     assert "matching audio" in got_out
 
 
+def test_align_from_pcm_padded_pcm_parity(capsys):
+    """combine()'s call: bucket-padded PCM with the true sample counts and
+    the per-stage progress lines (combine_prints) - same result and printed
+    lines as the JAX package's, and as the unpadded call."""
+    v, a = _i16_pair(**PAIRS["lead_in"])
+    for n in (1, v.shape[1], a.shape[1], tapi.PCM_BUCKET):
+        assert tapi._padded_len(n) == japi._padded_len(n)
+    vp, ap = tapi._pad_pcm_i16(v), tapi._pad_pcm_i16(a)
+    np.testing.assert_array_equal(vp, japi._pad_pcm_i16(v))
+    assert vp.shape[1] % tapi.PCM_BUCKET == 0 and vp.shape[1] > v.shape[1]
+    kw = dict(video_samples=v.shape[1], audio_samples=a.shape[1],
+              combine_prints=True)
+    capsys.readouterr()
+    want = japi.align_from_pcm(vp, ap, **kw)
+    want_out = capsys.readouterr().out
+    got = tapi.align_from_pcm(vp, ap, device='cpu', **kw)
+    got_out = capsys.readouterr().out
+    _assert_same_result(got, want)
+    _assert_same_result(got, tapi.align_from_pcm(v, a, device='cpu'))
+    assert got_out == want_out
+    assert got_out.startswith("  computing video features... \r")
+
+
 def test_low_margin_retry_parity(monkeypatch, capsys):
     """tests/test_confidence.py's 40-s pair with the confidence floor
     placed (in both packages) so the 5-stream coarse retry runs; both must
@@ -134,6 +157,14 @@ def test_cpu_path_and_stage_timings():
     assert set(timings) == {'features', 'coarse_map', 'coarse_dp', 'fine',
                             'lis_tail'}
     assert all(t >= 0 for t in timings.values())
+    # the feature-level entry takes the same dict
+    fv, nv = tapi.host_features_padded(v)
+    fa, na = tapi.host_features_padded(a)
+    feature_timings = {}
+    got = tapi.align(fv[:, :nv], fa[:, :na], fv[0, :nv], fa[0, :na],
+                     device='cpu', timings=feature_timings)
+    assert abs(float(got[0][0] - got[1][0]) - 2.0) < 0.05
+    assert set(feature_timings) == set(timings)
 
 
 @pytest.mark.parametrize("backend", ["native", "highs"])
