@@ -1,8 +1,9 @@
 #!/usr/bin/env python
 """Smoke run of the PyTorch port on an NVIDIA GPU (H100): build its CUDA
-kernel from the sources, hold the kernel against its plain version, drive
-the single-pair main path on the bench pair, and check the result against
-the JAX package's (tests/data/torch_bench_pair_expected.json).
+kernels from the sources, hold each kernel against its plain version, drive
+the single-pair main path on the bench pair, the CLI, a feature film and a
+batch of 8 pairs, and check the results against the JAX package's
+(tests/data/torch_*_expected.json).
 
     python3 chip_smoke.py
 
@@ -17,6 +18,12 @@ Needs one CUDA device and nvcc; exits non-zero without them. Phases:
    and the last chunk; the first chunk's useful FMA count (from the masks
    and bands) and the kernel's bound: 3xTF32 on the tensor cores, beside
    fp32 FFMA and device memory;
+2b. the coarse-DP kernels vs plain: dp_forward and dp_backtrace
+   (csrc/coarse_dp.cu) against their plain torch loops on the bench pair's
+   real score map, for track 1 and for the suppressed track 2: rows
+   torch.equal, paths equal (tolerance 0: max-plus is exact). CUDA-event
+   times of both beside the bytes bound. The same on one 64-row film tile
+   at D = 61,438 from a non-zero checkpoint (in phase 5a);
 3. main path: describealign_tpu_torch align_from_pcm on the bench pair
    (22-min video, 27-min description), one warm-up and 3 timed runs, a
    per-stage split, kernel launch counts, peak device memory, and the check
@@ -34,7 +41,18 @@ Needs one CUDA device and nvcc; exits non-zero without them. Phases:
    memory, and the fine kernel against its plain version on the film's
    first and last chunks; (b) one end-to-end run through the feature-level
    entry align() with its split, launches and peak memory, against the JAX
-   result (tests/data/torch_film_pair_expected.json) and the planted 202 s.
+   result (tests/data/torch_film_pair_expected.json) and the planted 202 s;
+6. the batch: describealign_tpu_torch.bench_pair.build_batch_pairs() (8
+   distinct ~22-min / ~27-min pairs, one of ~50 % similarity, one slowed
+   by 3 %) through align_batch_from_pcm twice (first and warm) and one by
+   one through align_from_pcm: every batch tuple equal to the single-pair
+   tuple apart from the margin (f16 in the batch: 1e-3 relative), every
+   pair against the JAX batch result
+   (tests/data/torch_batch8_expected.json: nodes within 10 ms, similarity
+   within 0.5, slope within 1e-4) and the 6 plain pairs' planted offsets
+   within 10 ms. Batch and one-by-one wall, audio-minutes per second,
+   launches by kernel, the dense buffer's bytes and device-to-host time
+   per pair, host waits in a pair's dispatch, peak device memory.
 Each phase prints its wall time. The line before the last is the kernels'
 JSON record; the last line is {"ok": true, "device": {...}}.
 """
@@ -47,6 +65,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 import wave
 
 import numpy as np
@@ -59,6 +78,9 @@ COMBINE_EXPECTED = os.path.join(REPO, "tests", "data",
                                 "torch_combine_expected.json")
 FILM_EXPECTED = os.path.join(REPO, "tests", "data",
                              "torch_film_pair_expected.json")
+BATCH_EXPECTED = os.path.join(REPO, "tests", "data",
+                              "torch_batch8_expected.json")
+MARGIN_REL = 1e-3           # batch margin (an f16 word) vs the f32 margin
 PLANTED_OFFSET_S = 202.0    # the film pair's lead-in
 TOL_S = 0.010               # node / start-offset agreement with JAX, seconds
 P99_REL = 1e-3              # kernel vs plain: 99th percentile relative error
@@ -83,17 +105,100 @@ def card_line():
         check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn):
-    """Mean milliseconds per call of fn over REPS calls after a warm-up."""
+def cuda_ms(fn, reps=REPS):
+    """Mean milliseconds per call of fn over reps calls after a warm-up."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(REPS):
+    for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / REPS
+    return start.elapsed_time(end) / reps
+
+
+def kernel_counts(reset=False):
+    """{kernel: launches so far}; reset sets every count to 0 first."""
+    from describealign_tpu_torch.ops import coarse_dp, fine_kernel
+    wrappers = {"fine_match": fine_kernel.fine_match,
+                "dp_forward": coarse_dp.dp_forward,
+                "dp_backtrace": coarse_dp.dp_backtrace}
+    if reset:
+        for w in wrappers.values():
+            w.launches = 0
+    return {k: w.launches for k, w in wrappers.items()}
+
+
+def dp_vs_plain(label, prev, scores, o_last, smi):
+    """dp_forward and dp_backtrace against their plain versions on one
+    score map. Returns {kernel: (ms, plain_ms, bound_ms, n, d, max_abs_err)}
+    and fails on any difference."""
+    from describealign_tpu_torch.ops import coarse_dp
+    n, d = scores.shape
+    rows = coarse_dp.dp_forward(prev, scores)
+    path = coarse_dp.dp_backtrace(o_last, rows)
+    torch.cuda.synchronize()
+    rows_p = coarse_dp.dp_forward_plain(prev, scores)
+    path_p = coarse_dp.dp_backtrace_plain(o_last, rows_p)
+    row_err = float((rows - rows_p).abs().max())
+    path_err = int((path != path_p).sum())
+    same = torch.equal(rows, rows_p) and path_err == 0
+    f_ms = cuda_ms(lambda: coarse_dp.dp_forward(prev, scores))
+    b_ms = cuda_ms(lambda: coarse_dp.dp_backtrace(o_last, rows))
+    fp_ms = cuda_ms(lambda: coarse_dp.dp_forward_plain(prev, scores), 1)
+    bp_ms = cuda_ms(lambda: coarse_dp.dp_backtrace_plain(o_last, rows), 1)
+    f_bound, b_bound = (x / HBM_BYTES_S * 1e3 for x in coarse_dp.dp_work(n, d))
+    print(f"[2b DP kernels vs plain] {label} ({n} x {d}): rows "
+          f"{'equal' if torch.equal(rows, rows_p) else 'DIFFER'} (max abs "
+          f"err {row_err:.3g}), path {'equal' if path_err == 0 else 'DIFFERS'}"
+          f" ({path_err} lanes) | dp_forward {f_ms:.3f} ms "
+          f"({f_ms / n * 1e3:.2f} us per step), plain {fp_ms:.1f} ms, bytes "
+          f"bound {f_bound:.4f} ms | dp_backtrace {b_ms:.3f} ms "
+          f"({b_ms / n * 1e3:.2f} us per step), plain {bp_ms:.1f} ms, bytes "
+          f"bound {b_bound:.4f} ms ({smi})", flush=True)
+    if not same:
+        raise AssertionError(f"{label}: the DP kernels disagree with their "
+                             f"plain versions")
+    return {"dp_forward": (f_ms, fp_ms, f_bound, n, d, row_err),
+            "dp_backtrace": (b_ms, bp_ms, b_bound, n, d, float(path_err))}
+
+
+def coarse_descriptors(fa, na, fv, nv, device):
+    """(audio descriptors, the 7 video phases' descriptors, audio mask) of
+    the coarse pass, from padded (5, Npad) f32 feature stacks."""
+    from describealign_tpu_torch.alignment import api, matching, preprocess
+    feats_a = api._upload(fa, device).float()
+    feats_v = api._upload(fv, device).float()
+    ms_a, norms_a = preprocess.preprocess_features(feats_a)
+    ms_v, norms_v = preprocess.preprocess_features(feats_v)
+    a_mask = preprocess.valid_audio_mask(feats_a[0], na)
+    v_mask = preprocess.valid_video_mask(feats_v[0], nv)
+    nf = matching.COARSE_STREAMS
+    desc_a = matching._coarse_descriptors(ms_a[:nf], norms_a[:nf], a_mask)
+    desc_v = [matching._coarse_descriptors(ms_v[:nf], norms_v[:nf], v_mask,
+                                           p) for p in matching.SUB_LANE_SHIFTS]
+    return desc_a, desc_v, a_mask
+
+
+def phase_dp_kernels(fa, na, fv, nv, device, smi):
+    """Phase 2b on the bench pair's score map: track 1, then track 2 on the
+    map with track 1 suppressed. Returns dp_vs_plain's rows per track."""
+    from describealign_tpu_torch.alignment import matching
+    desc_a, desc_v, _ = coarse_descriptors(fa, na, fv, nv, device)
+    p_map = matching._block_scores_local(desc_a, desc_v)
+    del desc_a, desc_v
+    zero = torch.zeros(p_map.shape[1], dtype=torch.float32, device=device)
+    out = [dp_vs_plain("bench pair, track 1", zero, p_map, None, smi)]
+    v_path, _ = matching._coarse_dp(p_map)
+    lanes = torch.arange(p_map.shape[1], dtype=torch.int32,
+                         device=device)[None, :]
+    suppressed = torch.where(
+        torch.abs(lanes - v_path[:, None]) <= matching.SUPPRESS_LANES,
+        torch.tensor(-1e30, dtype=torch.float32, device=device), p_map)
+    out.append(dp_vs_plain("bench pair, track 2 (track 1 suppressed)", zero,
+                           suppressed, None, smi))
+    return out
 
 
 def build_all(*builders):
@@ -201,7 +306,7 @@ def kernel_vs_plain(state, b0, track, timed):
 
 
 # The CLI run of phase 4: `python -m describealign_tpu_torch ARGS` through
-# runpy, with the fine kernel's launch count and the wall time of combine()
+# runpy, with the kernels' launch counts and the wall time of combine()
 # and of its stages (module functions wrapped with a clock, looked up by
 # combine() at call time) printed as one JSON line after the CLI's output.
 CLI_RUN = """
@@ -211,7 +316,7 @@ import describealign_tpu_torch.media.decode as decode
 import describealign_tpu_torch.media.mux as mux
 import describealign_tpu_torch.report.plots as plots
 import describealign_tpu_torch.stretch.segments as segments
-from describealign_tpu_torch.ops import fine_kernel
+from describealign_tpu_torch.ops import coarse_dp, fine_kernel
 stages = {}
 def timed(mod, name, stage):
     fn = getattr(mod, name)
@@ -228,12 +333,16 @@ timed(segments, "replace_aligned_segments", "stretch")
 timed(mux, "write_replaced_media_to_disk", "write")
 timed(plots, "plot_alignment", "report")
 sys.argv = ["describealign_tpu_torch"] + sys.argv[1:]
-fine_kernel.fine_match.launches = 0
+wrappers = {"fine_match": fine_kernel.fine_match,
+            "dp_forward": coarse_dp.dp_forward,
+            "dp_backtrace": coarse_dp.dp_backtrace}
+for w in wrappers.values():
+    w.launches = 0
 t0 = time.perf_counter()
 runpy.run_module("describealign_tpu_torch", run_name="__main__",
                  alter_sys=True)
 print(json.dumps({"combine_s": time.perf_counter() - t0, "stages": stages,
-                  "launches": fine_kernel.fine_match.launches}))
+                  "launches": {k: w.launches for k, w in wrappers.items()}}))
 """
 
 
@@ -248,8 +357,8 @@ def report_numbers(lines):
 
 def phase_combine(v, a, smi, n_chunks):
     """Phase 4: the CLI on the bench pair's WAVs, against the JAX
-    package's combine() on the same WAVs. Returns the fine kernel's
-    launches in the run."""
+    package's combine() on the same WAVs. Returns the kernels' launches
+    in the run."""
     from describealign_tpu_torch.alignment import matching
     from describealign_tpu_torch.media.decode import write_wav
     with open(COMBINE_EXPECTED) as f:
@@ -298,15 +407,18 @@ def phase_combine(v, a, smi, n_chunks):
         "similarity": abs(got[0] - want[0]) <= 0.5,
         "median rate change": abs(got[2] - want[2]) <= 1e-4 * 100,
         "printed lines": printed == expected["printed"] and len(no_plot) <= 1,
-        "launches": stats["launches"] == n_chunks * matching.N_TRACKS,
+        "launches": stats["launches"] == {
+            "fine_match": n_chunks * matching.N_TRACKS,
+            "dp_forward": matching.N_TRACKS,
+            "dp_backtrace": matching.N_TRACKS},
     }
     print(f"[4 CLI] python -m describealign_tpu_torch on the bench pair's "
           f"WAVs ({expected['video_samples']} video samples, 2 channels): "
           f"CLI process {cli_s:.2f} s, combine() {stats['combine_s']:.2f} s "
           f"= " + ", ".join(f"{k} {t:.2f} s"
                             for k, t in stats["stages"].items())
-          + f" (+ the rest); WAVs written in {wav_s:.2f} s | fine_match "
-          f"launches {stats['launches']} | output {shape} | report similarity "
+          + f" (+ the rest); WAVs written in {wav_s:.2f} s | launches "
+          f"{stats['launches']} | output {shape} | report similarity "
           f"{got[0]:.2f}% start offset {got[1]:.2f} s median rate change "
           f"{got[2]:.2f}% (JAX {want[0]:.2f}, {want[1]:.2f}, {want[2]:.2f}); "
           f"report {'identical to' if report == expected['report'] else 'differs from'}"
@@ -338,11 +450,12 @@ def timed_dp(matching, desc_a, desc_v, nb, streamed):
 
 def phase_film(device, smi):
     """Phase 5: the feature film on the streamed coarse DP. Returns (the
-    fine kernel's launches in the end-to-end run, [(chunk b0, track,
-    *kernel_vs_plain row)] on the film's first and last chunks)."""
+    kernels' launches in the end-to-end run, [(chunk b0, track,
+    *kernel_vs_plain row)] on the film's first and last chunks, the DP
+    kernels' dp_vs_plain row on one film tile)."""
     from describealign_tpu_torch import film_pair
     from describealign_tpu_torch.alignment import api, matching, preprocess
-    from describealign_tpu_torch.ops import fine_kernel
+    from describealign_tpu_torch.ops import coarse_dp
     with open(FILM_EXPECTED) as f:
         expected = json.load(f)
     t0 = time.perf_counter()
@@ -371,16 +484,7 @@ def phase_film(device, smi):
 
     # (a) the streamed and the materialized DP on the film's descriptors
     t_phase = time.perf_counter()
-    feats_a = api._upload(fa, device).float()
-    feats_v = api._upload(fv, device).float()
-    ms_a, norms_a = preprocess.preprocess_features(feats_a)
-    ms_v, norms_v = preprocess.preprocess_features(feats_v)
-    a_mask = preprocess.valid_audio_mask(feats_a[0], na)
-    v_mask = preprocess.valid_video_mask(feats_v[0], nv)
-    nf = matching.COARSE_STREAMS
-    desc_a = matching._coarse_descriptors(ms_a[:nf], norms_a[:nf], a_mask)
-    desc_v = [matching._coarse_descriptors(ms_v[:nf], norms_v[:nf], v_mask,
-                                           p) for p in matching.SUB_LANE_SHIFTS]
+    desc_a, desc_v, a_mask = coarse_descriptors(fa, na, fv, nv, device)
     runs = {name: timed_dp(matching, desc_a, desc_v, nb, flag)
             for name, flag in (("streamed", True), ("materialized", False))}
     (sp, ss, s_t, s_mem), (mp, ms, m_t, m_mem) = runs.values()
@@ -396,9 +500,15 @@ def phase_film(device, smi):
           f"{'equal' if same else 'DIFFER'} ({smi})", flush=True)
     if not same:
         raise AssertionError("streamed and materialized DPs disagree")
+    # the DP kernels on the film's second 64-block tile, from the cost row
+    # the first tile leaves (a non-zero checkpoint) and a given last lane
+    tile0 = matching._chunk_scores(desc_a, desc_v, 0)
+    tile1 = matching._chunk_scores(desc_a, desc_v, 1)
+    ckpt = coarse_dp.dp_forward(torch.zeros(kv, device=device), tile0)[-1]
+    dp_row = dp_vs_plain("film tile 1 from tile 0's last row", ckpt, tile1,
+                         sp[0][2 * matching.COARSE_CHUNK].long(), smi)
     # the materialized DP's scores are views of its cost maps: drop them too
-    del runs, sp, ss, mp, ms, desc_a, desc_v, ms_a, ms_v, norms_a, norms_v
-    del feats_a, feats_v, a_mask, v_mask
+    del runs, sp, ss, mp, ms, desc_a, desc_v, a_mask, tile0, tile1, ckpt
     torch.cuda.empty_cache()
 
     # the fine kernel against its plain version on the film's chunks
@@ -421,13 +531,14 @@ def phase_film(device, smi):
     # (b) one end-to-end run through the feature-level entry align()
     split = {}
     torch.cuda.reset_peak_memory_stats()
-    fine_kernel.fine_match.launches = 0
+    kernel_counts(reset=True)
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()) as out:
         ax, vy, sim, _, slope = api.align(video, audio, video[0], audio[0],
                                           device=device, timings=split)
     e2e = time.perf_counter() - t0
-    launches = fine_kernel.fine_match.launches
+    launches = kernel_counts()
+    tiles = -(-nb // matching.COARSE_CHUNK)
     peak = torch.cuda.max_memory_allocated()
     printed = out.getvalue()
     start_off = float(ax[0] - vy[0])
@@ -444,11 +555,15 @@ def phase_film(device, smi):
                    and abs(margins[0] / expected["margin"] - 1) <= 1e-5),
         "no WARNING": "WARNING" not in printed,
         "no retry": "rechecking alignment" not in printed,
-        "launches": launches == n_chunks * matching.N_TRACKS,
+        # the streamed DP runs every tile forward twice and back once
+        "launches": launches == {
+            "fine_match": n_chunks * matching.N_TRACKS,
+            "dp_forward": 2 * tiles * matching.N_TRACKS,
+            "dp_backtrace": tiles * matching.N_TRACKS},
     }
     print(f"[5b film e2e] {e2e:.2f} s | split "
           + ", ".join(f"{k} {t:.3f} s" for k, t in split.items())
-          + f" | fine_match launches {launches} ({n_chunks} chunks x "
+          + f" | launches {launches} ({n_chunks} chunks and {tiles} tiles x "
           f"{matching.N_TRACKS} tracks) | peak device memory "
           f"{peak / 2**30:.3f} GiB | start offset {start_off:.4f} s (JAX "
           f"{expected['start_offset_s']:.4f}, planted {PLANTED_OFFSET_S}), "
@@ -461,7 +576,147 @@ def phase_film(device, smi):
                       for k, ok in checks.items()), flush=True)
     if not all(checks.values()):
         raise AssertionError(f"the film disagrees with JAX: {checks}")
-    return launches, rows
+    return launches, rows, dp_row
+
+
+def host_waits(fn):
+    """Where fn makes the host wait for the device: torch's
+    synchronization warnings, as a list of file:line."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message)]
+
+
+def phase_batch(device, smi):
+    """Phase 6: the 8 bench-batch pairs through align_batch_from_pcm (on
+    the card by default) and one by one. Returns the kernels' launches in
+    the warm batch call."""
+    from describealign_tpu_torch import bench_pair
+    from describealign_tpu_torch.alignment import api, matching
+    with open(BATCH_EXPECTED) as f:
+        expected = json.load(f)["pairs"]
+    t0 = time.perf_counter()
+    pairs, lens, planted, kinds = bench_pair.build_batch_pairs(workers=4)
+    gen_s = time.perf_counter() - t0
+    sums = [bench_pair.checksum(v, a) for v, a in pairs]
+    same = [c == e["checksum"] for c, e in zip(sums, expected)]
+    if ([tuple(ln) for ln in lens]
+            != [(e["video_samples"], e["audio_samples"]) for e in expected]
+            or kinds != [e["kind"] for e in expected]
+            # the slowed pair goes through scipy's resampler, whose last
+            # bits may differ between versions; the others are numpy's
+            or not all(ok for ok, k in zip(same, kinds) if k != "rate")):
+        raise AssertionError(f"the batch pairs differ from the expected "
+                             f"fixture's: lens {lens}, checksums {sums}")
+    minutes = sum(sa for _, sa in lens) / 44100 / 60
+    print(f"[6 batch] 8 pairs, {minutes:.1f} audio-minutes, built in "
+          f"{gen_s:.1f} s on 4 threads; PCM checksums "
+          f"{'all equal to' if all(same) else 'equal but the slowed pair to'}"
+          f" the fixture's ({smi})", flush=True)
+
+    def batch():
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            results = api.align_batch_from_pcm(pairs, true_samples=lens)
+        return results, time.perf_counter() - t0, out.getvalue()
+
+    _, first_s, _ = batch()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel_counts(reset=True)
+    results, warm_s, printed = batch()
+    launches = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    singles = []
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        for v, a in pairs:
+            singles.append(api.align_from_pcm(v, a, device=device))
+    seq_s = time.perf_counter() - t0
+    retries = out.getvalue().count("rechecking alignment")
+
+    # one pair's dispatch: host waits, the dense buffer and its copy
+    sv, sa = lens[0]
+    npad = max(api._bucket_pad(sv // 210), api._bucket_pad(sa // 210))
+    fv, nv = api.host_features_padded(pairs[0][0], sv, npad)
+    fa, na = api.host_features_padded(pairs[0][1], sa, npad)
+    dev_av = torch.from_numpy(np.stack([fa, fv]).astype(np.float16)).to(device)
+    made = []
+
+    def dispatch():
+        chunks, starts, _, margin = matching.match_stream_pair(dev_av, na, nv)
+        made.append(matching.concat_chunks_with_starts(chunks, starts,
+                                                       margin))
+    waits = host_waits(dispatch)
+    combo = made[0]
+    host_buf = torch.empty(combo.shape, dtype=combo.dtype, pin_memory=True)
+    d2h_ms = cuda_ms(lambda: host_buf.copy_(combo, non_blocking=True))
+    d2h_bytes = combo.numel() * combo.element_size()
+    del dev_av, made, combo
+
+    # chunks per pair follow its shape bucket
+    n_chunks = sum(-(-matching.nb_for(max(api._bucket_pad(sv // 210),
+                                          api._bucket_pad(sa // 210)))
+                     // matching.FINE_CHUNK) for sv, sa in lens)
+    want = {"fine_match": n_chunks * matching.N_TRACKS,
+            "dp_forward": 8 * matching.N_TRACKS,
+            "dp_backtrace": 8 * matching.N_TRACKS}
+    rows, checks = [], {}
+    for k, (got, one, e) in enumerate(zip(results, singles, expected)):
+        x, y, sim, path, slope, margin = got
+        start_off = float(x[0] - y[0])
+        jx = np.asarray(e["audio_times_s"])
+        jy = np.asarray(e["video_times_s"])
+        node_err = float(np.max(np.abs(np.interp(jx, x, y) - jy)))
+        checks[k] = {
+            "batch == single": (all(np.array_equal(got[i], one[i])
+                                    for i in (0, 1, 3))
+                                and sim == one[2] and slope == one[4]
+                                and abs(margin / one[5] - 1) <= MARGIN_REL),
+            "nodes": node_err <= TOL_S,
+            "similarity": abs(sim - e["similarity_percent"]) <= 0.5,
+            "median slope": abs(slope - e["median_slope"]) <= 1e-4,
+            "margin": abs(margin / e["margin"] - 1) <= MARGIN_REL,
+            "planted": (kinds[k] != "plain"
+                        or abs(start_off - planted[k]) <= TOL_S),
+            "finite": bool(np.isfinite(x).all() and np.isfinite(y).all()),
+        }
+        rows.append(f"pair {k} ({kinds[k]}): start offset {start_off:.4f} s "
+                    f"(JAX {e['start_offset_s']:.4f}, planted {planted[k]}),"
+                    f" node error {node_err * 1e3:.2f} ms over {len(jx)} JAX "
+                    f"nodes, similarity {sim:.3f} (JAX "
+                    f"{e['similarity_percent']:.3f}), slope {slope:.7f} (JAX "
+                    f"{e['median_slope']:.7f}), margin {margin:.4f} (single "
+                    f"{one[5]:.4f}, JAX {e['margin']:.4f})")
+    checks["run"] = {
+        "launches": launches == want,
+        "quiet": printed == "",
+        "no retry": retries == 0,
+    }
+    for row in rows:
+        print(f"[6 batch vs JAX] {row}", flush=True)
+    print(f"[6 batch] align_batch_from_pcm on the card: first call "
+          f"{first_s:.3f} s, warm {warm_s:.3f} s = "
+          f"{minutes / warm_s:.1f} audio-minutes per second | the same 8 "
+          f"pairs one by one through align_from_pcm {seq_s:.3f} s | launches "
+          f"in the warm call {launches} | dense buffer {d2h_bytes} bytes per "
+          f"pair, device-to-host copy into pinned memory {d2h_ms:.3f} ms "
+          f"({d2h_bytes / d2h_ms / 1e6:.1f} GB/s) | host waits in one "
+          f"pair's matcher dispatch: {len(waits)} {waits} | peak device memory "
+          f"{peak / 2**20:.0f} MiB ({smi}) - "
+          + ", ".join(f"{name} {'ok' if all(c[name] for c in checks.values() if name in c) else 'FAIL'}"
+                      for name in list(checks[0]) + list(checks["run"])),
+          flush=True)
+    if not all(all(c.values()) for c in checks.values()):
+        raise AssertionError(f"the batch disagrees: {checks}")
+    return launches
 
 
 def main():
@@ -471,7 +726,7 @@ def main():
     from describealign_tpu_torch.alignment import api, matching
     from describealign_tpu_torch.alignment.native import native_lib
     from describealign_tpu_torch.bench_pair import build_scale_pair
-    from describealign_tpu_torch.ops import fine_kernel
+    from describealign_tpu_torch.ops import coarse_dp, fine_kernel
 
     device = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -479,11 +734,13 @@ def main():
     # --- phase 1: the card and the builds --------------------------------
     t_phase = time.perf_counter()
     smi = card_line()
-    nvcc_s, gxx_s = build_all(fine_kernel.load_library, native_lib)
+    nvcc_s, dp_s, gxx_s = build_all(fine_kernel.load_library,
+                                    coarse_dp.load_library, native_lib)
     print(smi)
     print(f"[1 card] {smi} | torch {torch.__version__} | CUDA "
-          f"{torch.version.cuda} | nvcc fine_match.cu {nvcc_s:.2f} s | g++ "
-          f"host library {gxx_s:.2f} s", flush=True)
+          f"{torch.version.cuda} | nvcc fine_match.cu {nvcc_s:.2f} s, "
+          f"coarse_dp.cu {dp_s:.2f} s | g++ host library {gxx_s:.2f} s "
+          f"(built side by side)", flush=True)
     t_phase = phase_done(1, t_phase, smi)
 
     # --- the bench pair (regenerated into the ignored build directory) ---
@@ -525,6 +782,7 @@ def main():
         print(f"[2 kernel vs plain] chunk b0={b0} track {track}: {n} "
               f"candidates, {sets}, max abs err {err:.3g}, p99 rel "
               f"{p99:.3g}{timing} ({smi})", flush=True)
+    dp_rows = phase_dp_kernels(fa, na, fv, nv, device, smi)
     t_phase = phase_done(2, t_phase, smi)
 
     # --- phase 3: the main path ------------------------------------------
@@ -535,19 +793,21 @@ def main():
 
     run()                                           # warm-up
     torch.cuda.reset_peak_memory_stats()
-    fine_kernel.fine_match.launches = 0
+    kernel_counts(reset=True)
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
         result, printed = run()
         times.append(time.perf_counter() - t0)
-    launches = fine_kernel.fine_match.launches
+    launches = kernel_counts()
     peak = torch.cuda.max_memory_allocated()
-    retried = "rechecking alignment" in printed
-    want = 3 * n_chunks * matching.N_TRACKS * (2 if retried else 1)
+    runs = 3 * (2 if "rechecking alignment" in printed else 1)
+    want = {"fine_match": runs * n_chunks * matching.N_TRACKS,
+            "dp_forward": runs * matching.N_TRACKS,
+            "dp_backtrace": runs * matching.N_TRACKS}
     if launches != want:
-        raise AssertionError(f"fine_match launched {launches} times in 3 "
-                             f"runs, expected {want}")
+        raise AssertionError(f"the kernels launched {launches} in 3 runs, "
+                             f"expected {want}")
     split = {}
     run(split)
     e2e = float(np.median(times))
@@ -556,7 +816,7 @@ def main():
           f"{gen_s:.1f} s): e2e median {e2e:.3f} s of "
           f"{[round(t, 3) for t in times]} | split "
           + ", ".join(f"{k} {s:.3f} s" for k, s in split.items())
-          + f" | fine_match launches {launches} (3 runs) | peak device "
+          + f" | launches {launches} (3 runs) | peak device "
           f"memory {peak / 2**20:.0f} MiB ({smi})", flush=True)
 
     x, y, sim, _, slope, margin = result
@@ -590,8 +850,47 @@ def main():
     t_phase = phase_done(4, t_phase, smi)
 
     # --- phase 5: a feature film through the streamed coarse DP -----------
-    film_launches, film_rows = phase_film(device, smi)
-    phase_done(5, t_phase, smi)
+    film_launches, film_rows, film_dp = phase_film(device, smi)
+    t_phase = phase_done(5, t_phase, smi)
+
+    # --- phase 6: the batch of 8 -------------------------------------------
+    batch_launches = phase_batch(device, smi)
+    phase_done(6, t_phase, smi)
+
+    def by_phase(kernel):
+        return {"3 align_from_pcm, 3 runs": launches[kernel],
+                "4 CLI": cli_launches[kernel],
+                "5 film": film_launches[kernel],
+                "6 batch of 8, warm call": batch_launches[kernel]}
+
+    def dp_record(kernel, line):
+        # times on the bench pair's score map, mean of the two tracks; the
+        # steps are sequential, so n steps of the measured step time stand
+        # beside the bytes bound
+        ms, plain_ms, bound_ms, n, _, _ = (
+            float(np.mean([r[kernel][i] for r in dp_rows])) for i in range(6))
+        f_ms, f_plain, f_bound, f_n, f_d, _ = film_dp[kernel]
+        return {
+            "name": kernel,
+            "route": "cuda",
+            "source": "describealign_tpu_torch/csrc/coarse_dp.cu",
+            "replaces": f"describealign_tpu/alignment/matching.py:{line}",
+            "launches": launches[kernel],
+            "launches_by_phase": by_phase(kernel),
+            "max_abs_err": max([r[kernel][5] for r in dp_rows]
+                               + [film_dp[kernel][5]]),
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes",
+            "bound_share": bound_ms / ms,
+            "step_us": ms / n * 1e3,
+            "film_tile_ms": f_ms,
+            "film_tile_plain_ms": f_plain,
+            "film_tile_bound_ms": f_bound,
+            "film_tile_step_us": f_ms / f_n * 1e3,
+            "library_ms": None,
+        }
 
     chunk0 = [r for r in rows if r[0] == 0]
     film0 = [r for r in film_rows if r[0] == 0]
@@ -602,10 +901,8 @@ def main():
         "route": "cuda",
         "source": "describealign_tpu_torch/csrc/fine_match.cu",
         "replaces": "describealign_tpu/ops/fine_kernel.py:61",
-        "launches": launches,
-        "launches_by_phase": {"3 align_from_pcm, 3 runs": launches,
-                              "4 CLI": cli_launches,
-                              "5 film": film_launches},
+        "launches": launches["fine_match"],
+        "launches_by_phase": by_phase("fine_match"),
         "max_abs_err": max(r[2] for r in rows + film_rows),
         "ms": k_ms,
         "plain_ms": float(np.mean([r[5] for r in chunk0])),
@@ -619,7 +916,7 @@ def main():
         "film_chunk_plain_ms": float(np.mean([r[5] for r in film0])),
         "film_chunk_bound_ms": float(np.mean([r[7][1] for r in film0])),
         "library_ms": None,
-    }]}))
+    }, dp_record("dp_forward", 225), dp_record("dp_backtrace", 241)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

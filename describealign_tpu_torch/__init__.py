@@ -9,9 +9,11 @@ synthetic media) and the host C++ sources (csrc/dp.cpp, csrc/features.cpp)
 are copied into it, and its own loaders build the host library (g++) and
 the CUDA kernels (nvcc) into build/describealign_tpu_torch/.
 
-    from describealign_tpu_torch import align_from_pcm, combine
+    from describealign_tpu_torch import (align_batch_from_pcm,
+                                         align_from_pcm, combine)
     x, y, sim, path, slope, margin = align_from_pcm(video_i16, audio_i16,
                                                     device="cuda")
+    results = align_batch_from_pcm([(video_i16, audio_i16), ...])
     combine("video.mp4", "audio.mp3")          # or the CLI:
     # describealign-tpu-torch video.mp4 audio.mp3
 """
@@ -42,3 +44,10 @@ def align(*args, **kwargs):
     """Align one feature pair; see alignment.api.align."""
     from .alignment.api import align as _align
     return _align(*args, **kwargs)
+
+
+def align_batch_from_pcm(*args, **kwargs):
+    """A list of int16 PCM pairs in, one alignment per pair out; see
+    alignment.api.align_batch_from_pcm."""
+    from .alignment.api import align_batch_from_pcm as _align_batch
+    return _align_batch(*args, **kwargs)

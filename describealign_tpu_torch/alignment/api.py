@@ -1,4 +1,5 @@
-"""align_from_pcm() / align(): the single-pair alignment entry points.
+"""align_from_pcm() / align() / align_batch_from_pcm(): the alignment entry
+points.
 
 Port of describealign_tpu/alignment/api.py's default path: host C++
 features (ops/host_features) -> common-bucket padding -> f16 feature
@@ -8,12 +9,20 @@ streaming LIS -> host tail (continuity filter, rescale, compression, L1
 fit, pass 2, outputs) with the 5-stream coarse retry on low confidence.
 Return tuples and printed progress / WARNING lines are the JAX package's.
 
+align_batch_from_pcm pipelines a list of pairs: the calling thread
+extracts features and dispatches each pair's matcher, pool threads wait
+for each pair's one result buffer and run the host stages.
+
 Not ported (link workarounds of the TPU setup, not semantics): the compact
-per-chunk transport, the pull thread pool and the profiler directory. The
-port reads no DESCRIBEALIGN_* setting; its defaults are the JAX package's.
+transports, the pull modes and the separate pull pool, and the profiler
+directory. The port reads no DESCRIBEALIGN_* setting; its defaults are the
+JAX package's.
 """
 import ctypes
+import os
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -228,32 +237,33 @@ def warn_low_confidence(margin):
 
 
 def _host_stages_from_path(y, x, feats_a_np, feats_v_np, na, nv,
-                           fit_backend, margin=None, device='cuda'):
+                           fit_backend, margin=None, device='cuda',
+                           quiet=False):
     """Host tail with the 5-stream coarse retry (api.py:1115-1143): a
     path-length failure or a margin below the floor re-runs the coarse pass
     over all 5 feature streams before the original result or raise
-    stands."""
+    stands. quiet: print no progress line (the batch path's threads)."""
     try:
         r = _host_stages_from_path_inner(y, x, feats_a_np, feats_v_np,
-                                         na, nv, fit_backend)
+                                         na, nv, fit_backend, quiet)
     except RuntimeError:
         # the reference's "Alignment failed" path-length raise
         if margin is not None:
             retried = _coarse_retry(feats_a_np, feats_v_np, na, nv,
-                                    fit_backend, None, device)
+                                    fit_backend, None, device, quiet)
             if retried is not None:
                 return retried
         raise
     if margin is not None and margin < matching.COARSE_MARGIN_FLOOR:
         retried = _coarse_retry(feats_a_np, feats_v_np, na, nv,
-                                fit_backend, margin, device)
+                                fit_backend, margin, device, quiet)
         if retried is not None:
             return retried
     return r + (margin,)
 
 
 def _coarse_retry(feats_a_np, feats_v_np, na, nv, fit_backend, margin,
-                  device):
+                  device, quiet=False):
     """Low-confidence escalation (api.py:1150-1197): re-run the matcher
     with the coarse pass over all 5 streams. The retried result replaces
     the original only when its margin, scaled to the 3-stream calibration
@@ -266,7 +276,8 @@ def _coarse_retry(feats_a_np, feats_v_np, na, nv, fit_backend, margin,
     the fine kernel, CUDA, device memory - propagate: the JAX package
     swallows them too, but there they never came from a hand-written
     kernel."""
-    print("  rechecking alignment (full-band descriptors)...\r", end='')
+    if not quiet:
+        print("  rechecking alignment (full-band descriptors)...\r", end='')
     y, x, m_r = _streamed_lis(
         _upload(feats_a_np, device), na, _upload(feats_v_np, device), nv,
         nf=matching.COARSE_RETRY_STREAMS)
@@ -277,10 +288,155 @@ def _coarse_retry(feats_a_np, feats_v_np, na, nv, fit_backend, margin,
         return None
     try:
         r = _host_stages_from_path_inner(y, x, feats_a_np, feats_v_np,
-                                         na, nv, fit_backend)
+                                         na, nv, fit_backend, quiet)
     except (RuntimeError, ValueError):
         return None
     return r + (m_r,)
+
+
+# One token per core around each heavy native section of the batch path
+# (feature extraction, the LIS feed, the refinement tail): they release the
+# GIL and have multi-MB working sets, so more of them in flight than cores
+# only refills caches (api.py:896-917). Device dispatches and the waits for
+# device results stay outside the token.
+_HOST_TOKEN = threading.BoundedSemaphore(os.cpu_count() or 1)
+
+
+def _require_device(device):
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is unavailable: describealign_tpu_torch "
+                           "runs its matcher on an NVIDIA GPU (pass "
+                           "device='cpu' to run it on the CPU)")
+    return device
+
+
+def align_batch_from_pcm(pairs, fit_backend=None, device_depth=4,
+                         host_workers=None, true_samples=None,
+                         device='cuda'):
+    """Batch fast path: list of (video_pcm_i16, audio_pcm_i16) pairs.
+
+    The calling thread extracts each pair's features and dispatches its
+    matcher, with at most device_depth + 1 pairs' device results
+    outstanding; host_workers pool threads wait for each pair's result
+    buffer and run the host stages (the native LIS, fit and pass 2 release
+    the GIL). true_samples: per pair (video, audio) true sample counts
+    when the PCM arrays are padded. device: where the matcher runs.
+
+    Returns a list of align_from_pcm's 6-tuples, one per pair, in input
+    order. The first error of any pair is raised.
+    """
+    device = _require_device(device)
+    fit_backend = fit_backend or DEFAULT_FIT_BACKEND
+    if host_workers is None:
+        # cores + 1: one thread may wait for the device while the others
+        # compute, without oversubscribing a small host
+        host_workers = min(4, (os.cpu_count() or 1) + 1)
+    if true_samples is None:
+        true_samples = [(v.shape[1], a.shape[1]) for (v, a) in pairs]
+    return _align_batch_streamed(pairs, true_samples, fit_backend,
+                                 host_workers, device_depth, device)
+
+
+def _pull_dense_parts(buf, n_tracks):
+    """Split a pair's (nb, W + 2 + 2*T) int16 buffer
+    (matching.concat_chunks_with_starts) into (packed rows, starts_tracks
+    (T, nb) i32, margin)."""
+    w_st = 2 * n_tracks
+    starts_tracks = np.ascontiguousarray(buf[:, -w_st:]).view(np.int32).T
+    margin = matching.margin_from_i16(buf[0, -w_st - 2])
+    # leading-columns VIEW: the strided native feed reads the packed rows
+    # in place (no second media-scale copy)
+    return buf[:, :-(w_st + 2)], starts_tracks, margin
+
+
+def _align_batch_streamed(pairs, true_samples, fit_backend, host_workers,
+                          device_depth, device):
+    """Batch via the streaming matcher, pipelined in two stages
+    (api.py:380-664, dense transport):
+
+    - the calling thread extracts pair i's features (native code, GIL
+      released), uploads them as one pinned (2, 5, Npad) f16 array,
+      dispatches the matcher and the one-buffer transport, starts the
+      buffer's copy into pinned host memory and records an event - all on
+      the current stream, nothing waits - then moves to pair i + 1;
+    - a pool thread waits for the event, releases the pair's in-flight slot
+      as soon as the bytes are on the host, and runs the CPU stages (native
+      LIS feed + refinement tail) under the core-count token.
+
+    Outstanding device results stay bounded by device_depth (+1 being
+    copied). The low-confidence retry runs its matcher from the pool
+    thread, outside that bound, as in the JAX package: at most
+    host_workers retries are in flight, each holding one pair's matcher
+    state on the device, on the same stream as the dispatches.
+    """
+    cuda = device.type == 'cuda'
+    in_flight = threading.Semaphore(max(2, device_depth + 1))
+
+    def dispatch(v, a, sv, sa):
+        npad = max(_bucket_pad(sv // 210), _bucket_pad(sa // 210))
+        fav_t = torch.empty((2, 5, npad), dtype=torch.float16,
+                            pin_memory=cuda)
+        fav = fav_t.numpy()
+        with _HOST_TOKEN:
+            fv, nv = host_features_padded(v, sv, npad)
+            fa, na = host_features_padded(a, sa, npad)
+            # one combined upload per pair ([0] = audio, [1] = video)
+            fav[0] = fa
+            fav[1] = fv
+        dev_av = fav_t.to(device, non_blocking=True)
+        chunks, starts_dev, _, margin_dev = matching.match_stream_pair(
+            dev_av, na, nv)
+        combo = matching.concat_chunks_with_starts(chunks, starts_dev,
+                                                   margin_dev)
+        if not cuda:
+            return combo, None, starts_dev.shape[0], fa, fv, na, nv
+        host_buf = torch.empty(combo.shape, dtype=combo.dtype,
+                               pin_memory=True)
+        host_buf.copy_(combo, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host_buf, done, starts_dev.shape[0], fa, fv, na, nv
+
+    def pull_and_refine(host_buf, done, n_tracks, fa, fv, na, nv):
+        try:
+            if done is not None:
+                done.synchronize()
+        finally:
+            in_flight.release()
+        packed, starts_tracks, margin = _pull_dense_parts(host_buf.numpy(),
+                                                          n_tracks)
+        with _HOST_TOKEN:
+            y, x = _consume_stream(iter([packed]), starts_tracks)
+            return _host_stages_from_path(y, x, fa, fv, na, nv, fit_backend,
+                                          margin=margin, device=device,
+                                          quiet=True)
+
+    def on_device(fn):
+        # the current device is per thread
+        def run(*args):
+            with torch.cuda.device(device):
+                return fn(*args)
+        return run if cuda else fn
+
+    futs = []
+    pool = ThreadPoolExecutor(max_workers=host_workers)
+    try:
+        for (v, a), (sv, sa) in zip(pairs, true_samples):
+            in_flight.acquire()
+            try:
+                job = on_device(dispatch)(v, a, sv, sa)
+            except BaseException:
+                # a failing dispatch must not keep its slot; the first
+                # error aborts the batch
+                in_flight.release()
+                raise
+            futs.append(pool.submit(on_device(pull_and_refine), *job))
+        return [f.result() for f in futs]
+    finally:
+        # pairs already handed to the pool finish (and release their
+        # slots); none is left running when the call returns or raises
+        pool.shutdown(wait=True, cancel_futures=True)
 
 
 def _rescale_native(feats_a_np, feats_v_np, na, nv, xi, yi):
@@ -307,12 +463,13 @@ def _rescale_native(feats_a_np, feats_v_np, na, nv, xi, yi):
 
 
 def _host_stages_from_path_inner(y, x, feats_a_np, feats_v_np, na, nv,
-                                 fit_backend):
+                                 fit_backend, quiet=False):
     """Filter -> rescale -> compress -> fit -> pass 2 -> outputs
     (api.py:1220-1286)."""
     _fail_if_short(len(x), nv, na)
 
-    print("  refining match: pass 1 of 2...\r", end='')
+    if not quiet:
+        print("  refining match: pass 1 of 2...\r", end='')
     x, y = continuity.continuity_filter(
         np.asarray(x, np.float64), np.asarray(y, np.float64))
 
@@ -326,7 +483,8 @@ def _host_stages_from_path_inner(y, x, feats_a_np, feats_v_np, na, nv,
     fit_result = fit.solve_l1_fit(cx, cy, backend=fit_backend)
     smooth_path = list(zip(cx, fit_result['smooth_y']))
 
-    print("  refining match: pass 2 of 2...\r", end='')
+    if not quiet:
+        print("  refining match: pass 2 of 2...\r", end='')
     clusters = refine.build_line_clusters(smooth_path, fit_result['slopes'])
     pj, pc, pq, offsets = refine.build_points_flat(clusters, audio_scaled,
                                                    video_scaled)

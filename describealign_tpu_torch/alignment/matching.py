@@ -12,11 +12,13 @@ block against a 768-frame video band around each track with the fine
 kernel (ops/fine_kernel.py), gates the rescue track, and packs the
 candidates into the u8-quality transport rows the native LIS reads.
 
-The DP is a plain torch loop (about 30 small launches per audio block and
-track). Above COARSE_STREAM_ELEMS score-map elements (long media: a
-95-minute film) it runs streamed, with the score map in 64-block tiles and
-one checkpointed cost row per tile, as the JAX package does.
+The DP's steps run in ops/coarse_dp.py (dp_forward, dp_backtrace: two
+hand-written CUDA kernels on the card, torch loops on the CPU). Above
+COARSE_STREAM_ELEMS score-map elements (long media: a 95-minute film) it
+runs streamed, with the score map in 64-block tiles and one checkpointed
+cost row per tile, as the JAX package does.
 """
+import numpy as np
 import torch
 
 from .preprocess import (WINDOW, preprocess_features, valid_audio_mask,
@@ -106,48 +108,18 @@ def _block_scores_local(desc_a, desc_v_list):
                       for c in range(nb_pad // COARSE_CHUNK)])[:nb]
 
 
-def _dp_relax(prev, slope, floor):
-    """One max-plus relaxation: shift by the nominal 10-lane advance, exact
-    |.| distance transform by two running cummax passes, capped by a flat
-    jump. slope = DP_SLOPE_COST * lane (exact in f32, as in the JAX DP);
-    floor = the (10,) -1e30 row shifted in."""
-    prev10 = torch.cat([floor, prev[:-COARSE_PER_BLOCK]])
-    fwd = torch.cummax(prev10 + slope, 0).values - slope
-    bwd = torch.cummax((prev10 - slope).flip(0), 0).values.flip(0) + slope
-    return torch.maximum(torch.maximum(fwd, bwd),
-                         torch.max(prev) - DP_JUMP_COST)
-
-
-def _dp_backstep(o_next, cost_prev, lanes):
-    """Predecessor lane of o_next given the previous cost row (move vs
-    jump; argmax takes the first maximal lane, as jnp.argmax)."""
-    moved = cost_prev - DP_SLOPE_COST * torch.abs(
-        lanes - (o_next - COARSE_PER_BLOCK).float())
-    jumped = torch.max(cost_prev) - DP_JUMP_COST
-    return torch.where(torch.max(moved) >= jumped, torch.argmax(moved),
-                       torch.argmax(cost_prev))
-
-
 def _coarse_dp(p_map):
-    """Monotone track DP over the (B, D) score map (matching.py:252-280).
+    """Monotone track DP over the (B, D) score map (matching.py:252-280):
+    one dp_forward over the whole map and one dp_backtrace.
     Returns (per-block video lane path (B,) i32, the track's score)."""
-    nb, d = p_map.shape
-    dev = p_map.device
-    lanes = torch.arange(d, dtype=torch.float32, device=dev)
-    slope = DP_SLOPE_COST * lanes
-    floor = torch.full((COARSE_PER_BLOCK,), -1e30, device=dev)
-    cost = torch.empty_like(p_map)
-    prev = torch.zeros(d, dtype=torch.float32, device=dev)
-    for b in range(nb):
-        prev = _dp_relax(prev, slope, floor) + p_map[b]
-        cost[b] = prev
-    o = torch.argmax(cost[-1])
-    path = torch.empty(nb, dtype=torch.int64, device=p_map.device)
-    path[-1] = o
-    for b in range(nb - 2, -1, -1):
-        o = _dp_backstep(o, cost[b], lanes)
-        path[b] = o
-    return path.to(torch.int32), cost[-1][path[-1]]
+    from ..ops.coarse_dp import dp_backtrace, dp_forward
+    d = p_map.shape[1]
+    cost = dp_forward(torch.zeros(d, dtype=torch.float32,
+                                  device=p_map.device), p_map)
+    path = dp_backtrace(None, cost)
+    # index_select, not cost[-1][path[-1]]: an index read on the host would
+    # make the dispatching thread wait for the whole DP
+    return path.to(torch.int32), cost[-1].index_select(0, path[-1:])[0]
 
 
 def _coarse_dp_streamed(desc_a, desc_v_list, nb, suppress_paths=()):
@@ -156,13 +128,14 @@ def _coarse_dp_streamed(desc_a, desc_v_list, nb, suppress_paths=()):
     tiles inside the DP, the forward pass keeps the cost row from before
     each chunk, and the backtrace recomputes each chunk's tile and cost
     rows from that checkpoint. Twice the score compute, for (chunks + 64)
-    rows of memory instead of 3 x (nb, kv). The same _chunk_scores,
-    _dp_relax and _dp_backstep as the materialized pair, so the paths and
-    the score are bit-equal to it.
+    rows of memory instead of 3 x (nb, kv). One dp_forward per tile and
+    pass and one dp_backtrace per tile, on the same _chunk_scores as the
+    materialized pair, so the paths and the score are bit-equal to it.
 
     suppress_paths: earlier k-best tracks' (nb,) lane paths; lanes within
     SUPPRESS_LANES of them score -1e30.
     """
+    from ..ops.coarse_dp import dp_backtrace, dp_forward
     kv = desc_v_list[0].shape[0]
     dev = desc_a.device
     nb_pad = -(-nb // COARSE_CHUNK) * COARSE_CHUNK
@@ -170,14 +143,11 @@ def _coarse_dp_streamed(desc_a, desc_v_list, nb, suppress_paths=()):
     desc_a = torch.nn.functional.pad(
         desc_a, (0, 0, 0, nb_pad * COARSE_PER_BLOCK - desc_a.shape[0]))
     lanes_i = torch.arange(kv, dtype=torch.int32, device=dev)[None, :]
-    lanes = torch.arange(kv, dtype=torch.float32, device=dev)
-    slope = DP_SLOPE_COST * lanes
-    floor = torch.full((COARSE_PER_BLOCK,), -1e30, device=dev)
-    neg = torch.tensor(-1e30, dtype=torch.float32, device=dev)
+    neg = torch.full((), -1e30, dtype=torch.float32, device=dev)
 
     def chunk_rows(c, prev):
         """Cost rows of chunk c's true blocks, from the row before it.
-        Rows past nb are never computed: the loop stops at nb, so the
+        Rows past nb are never computed: the tile stops at nb, so the
         last row is cost[nb - 1] (the JAX scan passes it through)."""
         b0 = c * COARSE_CHUNK
         n = min(COARSE_CHUNK, nb - b0)
@@ -185,29 +155,24 @@ def _coarse_dp_streamed(desc_a, desc_v_list, nb, suppress_paths=()):
         for vp in suppress_paths:
             s = torch.where(torch.abs(lanes_i - vp[b0:b0 + n, None])
                             <= SUPPRESS_LANES, neg, s)
-        rows = torch.empty((n, kv), dtype=torch.float32, device=dev)
-        for r in range(n):
-            prev = _dp_relax(prev, slope, floor) + s[r]
-            rows[r] = prev
-        return rows
+        return dp_forward(prev, s.contiguous())
 
     ckpts = torch.empty((n_chunks, kv), dtype=torch.float32, device=dev)
     prev = torch.zeros(kv, dtype=torch.float32, device=dev)
     for c in range(n_chunks):
         ckpts[c] = prev                      # the PRE-chunk row
         prev = chunk_rows(c, prev)[-1]
-    o = torch.argmax(prev)
-    score = prev[o]
     path = torch.empty(nb, dtype=torch.int64, device=dev)
-    path[-1] = o
+    o = None
     for c in range(n_chunks - 1, -1, -1):
         rows = chunk_rows(c, ckpts[c])
         b0 = c * COARSE_CHUNK
-        for r in range(rows.shape[0] - 1, -1, -1):
-            if b0 + r < nb - 1:
-                o = _dp_backstep(o, rows[r], lanes)
-                path[b0 + r] = o
-    return path.to(torch.int32), score
+        # block nb - 1 (the last tile's last row) takes the first maximal
+        # lane of its own row; every block b < nb - 1 backsteps from o
+        tile = dp_backtrace(o if b0 + rows.shape[0] < nb else None, rows)
+        path[b0:b0 + rows.shape[0]] = tile
+        o = tile[0]
+    return path.to(torch.int32), prev.index_select(0, path[-1:])[0]
 
 
 def _k_best_tracks(desc_a, desc_v_list, nb, streamed, mark=None):
@@ -241,7 +206,7 @@ def _k_best_tracks(desc_a, desc_v_list, nb, streamed, mark=None):
         scores.append(score)
         suppressed = torch.where(
             torch.abs(lanes - v_path[:, None]) <= SUPPRESS_LANES,
-            torch.tensor(-1e30, dtype=torch.float32, device=dev), suppressed)
+            torch.full((), -1e30, dtype=torch.float32, device=dev), suppressed)
     return v_paths, scores
 
 
@@ -421,7 +386,9 @@ def _pack_slots(q, o):
     codes = _qual_quantize_u8(q).contiguous()
     o = o.to(torch.int32)
     lo = (o & 255).to(torch.uint8).contiguous()
-    shifts = torch.tensor([1, 4, 16, 64], dtype=torch.int32, device=o.device)
+    # 1 << (2 * (j % 4)), made on the device: a tensor copied from the host
+    # would make the dispatching thread wait for the stream
+    shifts = 4 ** torch.arange(4, dtype=torch.int32, device=o.device)
     hi_b = torch.sum(((o >> 8) & 3).reshape(c, rows, k // 4, 4) * shifts,
                      dim=3).to(torch.uint8)
     if hi_b.shape[2] % 2:
@@ -445,6 +412,35 @@ def match_fine_chunk(ms_a, norms_a, a_mask, ms_v, norms_v, v_mask,
     return torch.cat([band1, rescue], dim=1)
 
 
+# --- the batch path's one-buffer transport (matching.py:650-682) ------------
+
+def _margin_words_i16(margin, rows):
+    """(rows, 2) int16 column pair: [bitcast f16 margin, 0] per row."""
+    m16 = margin.to(torch.float16).reshape(1, 1).view(torch.int16)
+    return torch.cat([m16.expand(rows, 1),
+                      torch.zeros((rows, 1), dtype=torch.int16,
+                                  device=margin.device)], dim=1)
+
+
+def margin_from_i16(word):
+    """Host decoder of _margin_words_i16's f16 word."""
+    return float(np.array(word, np.int16).view(np.float16))
+
+
+def concat_chunks_with_starts(chunks, starts_tracks, margin):
+    """Batch transport: the streamed chunks concatenated along blocks, then
+    the coarse margin (one f16 word + one pad word), then each block's band
+    starts bitcast into 2*T trailing int16 words per row - one
+    (nb, W + 2 + 2*T) int16 buffer, so a pair is one device-to-host copy.
+    Split back by api's batch consumer."""
+    packed = torch.cat(chunks, dim=0)                       # (nb, W)
+    # the chunks are trimmed to the true block count; so are the starts
+    st16 = (starts_tracks.T[:packed.shape[0]].to(torch.int32).contiguous()
+            .view(torch.int16))                             # (nb, 2*T)
+    return torch.cat([packed, _margin_words_i16(margin, packed.shape[0]),
+                      st16], dim=1)
+
+
 def match_stream(feats_a, len_a, feats_v, len_v, nf=None, mark=None):
     """The streaming matcher (matching.py:1018-1060): coarse tracks, then
     one match_fine_chunk per FINE_CHUNK blocks with the last chunk trimmed
@@ -463,3 +459,12 @@ def match_stream(feats_a, len_a, feats_v, len_v, nf=None, mark=None):
     if mark:
         mark('fine')
     return chunks, starts_tracks, n_chunks, state[7]
+
+
+def match_stream_pair(dev_av, len_a, len_v):
+    """match_stream off one combined (2, 5, Npad) upload ([0] = audio /
+    description features, [1] = video), the batch path's matcher
+    (matching.py:1028-1032). On the card it is a few dozen launches with no
+    host wait in between: the JAX package's one-dispatch matcher
+    (_match_pair_fused) needs no other counterpart."""
+    return match_stream(dev_av[0], len_a, dev_av[1], len_v)

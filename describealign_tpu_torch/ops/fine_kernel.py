@@ -13,10 +13,12 @@ cores, one CTA per block - and what bounds it on the H100).
 - `fine_match_plain` mirrors the JAX package's CPU path,
   `matching._fine_block` (the XLA twin of the Pallas kernel), op for op,
   and returns the kernel's layout.
-- `fine_match.launches` counts kernel launches.
+- `fine_match.launches` counts kernel launches (under a lock: the batch
+  path's retry launches from pool threads).
 """
 import ctypes
 import math
+import threading
 
 import numpy as np
 import torch
@@ -35,6 +37,7 @@ EXP_COEF = float(np.float32(-NB_EXPONENT / 3.0))
 PLAIN_GROUP = 32                # blocks per plain-version step (lax.map's)
 
 _lib = None
+_count_lock = threading.Lock()  # the batch path launches from pool threads too
 
 
 def load_library():
@@ -116,7 +119,8 @@ def fine_match(ms_a, norms_a, a_mask, ms_v, norms_v, v_mask, v_starts,
     if rc != 0:
         raise RuntimeError(f"fine_match kernel launch failed: CUDA error "
                            f"{rc}")
-    fine_match.launches += 1
+    with _count_lock:
+        fine_match.launches += 1
     return quals, offs
 
 
@@ -176,7 +180,7 @@ def fine_match_plain(ms_a, norms_a, a_mask, ms_v, norms_v, v_mask, v_starts,
     l_idx = torch.arange(BLOCK, device=dev)[:, None]
     e_idx = torch.arange(FINE_W, device=dev)[None, :]
     in_band = (e_idx >= l_idx) & (e_idx <= l_idx + 2 * FINE_HALF_BAND)
-    scale = torch.tensor(QUAL_SCALE, dtype=torch.float32, device=dev)
+    scale = torch.full((), QUAL_SCALE, dtype=torch.float32, device=dev)
     quals, offs = [], []
     for g in range(0, v_starts.shape[0], PLAIN_GROUP):
         a0 = a_starts[g:g + PLAIN_GROUP]

@@ -7,17 +7,18 @@ install flow, per-pair decode -> features -> align -> (video retime | audio
 stretch) -> mux -> plot/report, with the same prints, warnings, skip/resume
 rule, and defaults.
 
-Every pair runs through the sequential loop with a one-pair decode-ahead
-thread, the loop the JAX package keeps for single pairs and under
-DESCRIBEALIGN_BATCH=0; its pipelined batch aligner for directories is not
-ported yet. The matcher runs on `device` (default 'cuda'); there is no
-fallback to the CPU.
+Directory runs with more than one pair to align go through the pipelined
+batch aligner (align_batch_from_pcm) while the mux/report stages stay
+per-pair in input order; a single pair runs through the sequential loop
+with a one-pair decode-ahead thread. The matcher runs on `device` (default
+'cuda'); there is no fallback to the CPU.
 """
 import os
+import queue as queue_mod
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
-import torch
 
 from .constants import (AUDIO_EXTENSIONS, DEFAULT_ALIGNMENT_DIR,
                         DEFAULT_OUTPUT_DIR, IS_RUNNING_WINDOWS,
@@ -32,6 +33,98 @@ def _low_ram_std(arr):
                    / arr.size - avg ** 2)
 
 
+# Pairs per align_batch_from_pcm call in directory mode. Groups bound peak
+# memory (a group's decoded PCM is held until its pairs are consumed) while
+# still amortizing the device pipeline across pairs.
+BATCH_GROUP_SIZE = 8
+
+
+def _use_batch(n_work):
+    """Directory runs with more than one pair to align go through the
+    pipelined batch path."""
+    return n_work > 1
+
+
+class _BatchAligner:
+    """Background decode + batch-align engine for directory mode.
+
+    A single worker thread decodes group-size slices of the work list and
+    runs align_batch_from_pcm on each slice (which pipelines device
+    dispatch and threads the host refinement); results arrive on a bounded
+    queue in work-list order, so the main combine() loop consumes pair i's
+    alignment while pairs i+1.. are still decoding/aligning. The queue
+    bound caps retained PCM (stretch mode hands the decoded arrays back to
+    the consumer for segment replacement).
+    """
+
+    def __init__(self, items, num_channels, keep_pcm, group, device):
+        # items: list of (pair_index, video_file, audio_file) in input order
+        self._items = items
+        self._nch = num_channels
+        self._keep_pcm = keep_pcm
+        self._group = group
+        self._device = device
+        self._q = queue_mod.Queue(maxsize=max(2, group))
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _put(self, item):
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.5)
+                return True
+            except queue_mod.Full:
+                continue
+        return False
+
+    def _run(self):
+        from .alignment.api import align_batch_from_pcm
+        from .media.decode import parse_audio_int16
+        try:
+            for g0 in range(0, len(self._items), self._group):
+                if self._stop.is_set():
+                    return
+                group = self._items[g0:g0 + self._group]
+                pcm = []
+                lens = []
+                for _, vf, af in group:
+                    v = parse_audio_int16(vf, self._nch)
+                    a = parse_audio_int16(af, self._nch)
+                    pcm.append((v, a))
+                    lens.append((v.shape[1], a.shape[1]))
+                results = align_batch_from_pcm(pcm, true_samples=lens,
+                                               device=self._device)
+                for (idx, _, _), res, vap, ln in zip(group, results, pcm,
+                                                     lens):
+                    payload = (vap + ln) if self._keep_pcm else None
+                    if not self._put(('ok', idx, res, payload)):
+                        return
+                del pcm
+        except BaseException as exc:  # surfaced on the consumer thread
+            self._put(('err', exc))
+
+    def get(self, pair_index):
+        kind, *rest = self._q.get()
+        if kind == 'err':
+            raise rest[0]
+        idx, res, payload = rest
+        if idx != pair_index:
+            raise RuntimeError(
+                f"batch aligner out of order: got pair {idx}, "
+                f"expected {pair_index}")
+        return res, payload
+
+    def shutdown(self):
+        self._stop.set()
+        # drain so a worker blocked on a full queue can observe the stop
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue_mod.Empty:
+            pass
+
+
 def combine(video, audio, stretch_audio=False, yes=False, prepend="ad_",
             no_pitch_correction=False, output_dir=DEFAULT_OUTPUT_DIR,
             alignment_dir=DEFAULT_ALIGNMENT_DIR, device='cuda'):
@@ -42,8 +135,8 @@ def combine(video, audio, stretch_audio=False, yes=False, prepend="ad_",
     the matcher runs.
     """
     from . import __version__
-    from .alignment.api import align_from_pcm, warn_low_confidence
-    from .alignment.api import _pad_pcm_i16
+    from .alignment.api import (_pad_pcm_i16, _require_device,
+                                align_from_pcm, warn_low_confidence)
     from .media import ffmpeg as ffmpeg_mod
     from .media.decode import parse_audio_int16
     from .media.mux import (encode_fit_as_ffmpeg_expr,
@@ -52,11 +145,7 @@ def combine(video, audio, stretch_audio=False, yes=False, prepend="ad_",
     from .report.plots import plot_alignment
     from .stretch.segments import replace_aligned_segments
 
-    device = torch.device(device)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is unavailable: describealign_tpu_torch "
-                           "runs its matcher on an NVIDIA GPU (pass "
-                           "device='cpu' to run it on the CPU)")
+    device = _require_device(device)
 
     video_files, has_audio_extensions = get_sorted_filenames(
         video, VIDEO_EXTENSIONS, AUDIO_EXTENSIONS)
@@ -103,13 +192,37 @@ def combine(video, audio, stretch_audio=False, yes=False, prepend="ad_",
     num_channels = 2 if stretch_audio else 1
     out_names = [os.path.join(output_dir, prepend + os.path.split(vf)[1])
                  for vf in video_files]
-    # resume rule (reference 1087-1089)
+    # Per-pair plan: resume skip (reference 1087-1089), cached alignment,
+    # and whether the pair raises the stretch-required error. Precomputing
+    # lets the batch aligner start on exactly the pairs that need work
+    # while the loop below keeps the reference's per-pair prints.
     skip = [os.path.exists(o) and os.path.getsize(o) > 1e5
             for o in out_names]
+    cached_outputs = {}
+    align_needed = []
+    for i, (vf, af, hax) in enumerate(zip(video_files, audio_desc_files,
+                                          has_audio_extensions)):
+        if skip[i]:
+            continue
+        if (not stretch_audio) & bool(hax):
+            break  # the loop below raises at this pair; align nothing past it
+        cached = aligncache.load(alignment_dir, vf, af, num_channels)
+        if cached is not None:
+            cached_outputs[i] = cached
+        else:
+            align_needed.append((i, vf, af))
 
-    # decode-ahead: decode the next pair in a worker thread while the
-    # current pair aligns (the reference's directory loop is sequential,
-    # describealign.py:1077)
+    batcher = None
+    batch_owned = set()
+    if _use_batch(len(align_needed)):
+        batcher = _BatchAligner(align_needed, num_channels,
+                                keep_pcm=stretch_audio,
+                                group=BATCH_GROUP_SIZE, device=device)
+        batch_owned = {i for i, _, _ in align_needed}
+
+    # decode-ahead for the sequential path: decode the next pair in a
+    # worker thread while the current pair aligns (the reference's
+    # directory loop is sequential, describealign.py:1077)
     decode_pool = ThreadPoolExecutor(max_workers=1)
 
     def decode_pair(vf_af):
@@ -122,8 +235,9 @@ def combine(video, audio, stretch_audio=False, yes=False, prepend="ad_",
     pending = {}
 
     def prefetch(idx):
+        # the batch engine owns decode for the pairs it aligns
         if (0 <= idx < len(video_files) and idx not in pending
-                and not skip[idx]):
+                and idx not in batch_owned and not skip[idx]):
             pending[idx] = decode_pool.submit(
                 decode_pair, (video_files[idx], audio_desc_files[idx]))
 
@@ -147,12 +261,24 @@ def combine(video, audio, stretch_audio=False, yes=False, prepend="ad_",
             if IS_RUNNING_WINDOWS and len(full_output_filename) >= 260:
                 print("  WARNING: very long output path, ffmpeg may fail...")
 
-            cached = aligncache.load(alignment_dir, video_file,
-                                     audio_desc_file, num_channels)
+            cached = cached_outputs.get(pair_index)
             video_arr = audio_desc_arr = None
             if cached is not None and not stretch_audio:
                 print("  using cached alignment...\r", end='')
                 outputs = cached
+            elif pair_index in batch_owned:
+                print("  reading video file...\r", end='')
+                outputs, payload = batcher.get(pair_index)
+                aligncache.save(alignment_dir, video_file, audio_desc_file,
+                                outputs, num_channels)
+                if stretch_audio:
+                    video_i16, audio_i16, video_samples, audio_samples = \
+                        payload
+                    video_arr = (video_i16[:, :video_samples]
+                                 .astype(np.float16).astype(np.float32))
+                    audio_desc_arr = (audio_i16[:, :audio_samples]
+                                      .astype(np.float16).astype(np.float32))
+                    del video_i16, audio_i16
             else:
                 # reference per-stage progress lines (describealign.py:
                 # 1097-1113); decode-ahead covers both streams under the
@@ -247,5 +373,7 @@ def combine(video, audio, stretch_audio=False, yes=False, prepend="ad_",
                                stretch_audio, no_pitch_correction,
                                ffmpeg_command)
     finally:
+        if batcher is not None:
+            batcher.shutdown()
         decode_pool.shutdown(wait=False)
     print("All files processed.       ")

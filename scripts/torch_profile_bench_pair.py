@@ -4,12 +4,14 @@
 Runs describealign_tpu_torch's align_from_pcm on the 22-min video /
 27-min description bench pair (or, with --pair film, the feature-level
 entry align() on the 95-min film / 101.4-min description of
-describealign_tpu_torch.film_pair, whose coarse DP runs streamed): one
-warm-up, --runs timed end-to-end runs, --splits runs with the per-stage
-split (timings=...), then one run under torch.profiler. Run from the repo
-root on a machine with an NVIDIA GPU:
+describealign_tpu_torch.film_pair, whose coarse DP runs streamed; or, with
+--pair batch8, align_batch_from_pcm on the 8 pairs of
+describealign_tpu_torch.bench_pair.build_batch_pairs, which has no
+per-stage split): one warm-up, --runs timed end-to-end runs, --splits runs
+with the per-stage split (timings=...), then one run under torch.profiler.
+Run from the repo root on a machine with an NVIDIA GPU:
 
-    python scripts/torch_profile_bench_pair.py [--pair film] [--runs 5] [--splits 3]
+    python scripts/torch_profile_bench_pair.py [--pair film|batch8] [--runs 5] [--splits 3]
 
 Prints lines starting with PROFILE: the card (nvidia-smi name and power
 limit), each run's e2e seconds and their median, each split, the profiled
@@ -44,13 +46,15 @@ def main():
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--splits", type=int, default=3)
     ap.add_argument("--top", type=int, default=12)
-    ap.add_argument("--pair", choices=("bench", "film"), default="bench")
+    ap.add_argument("--pair", choices=("bench", "film", "batch8"),
+                    default="bench")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     from describealign_tpu_torch import film_pair
     from describealign_tpu_torch.alignment import api
-    from describealign_tpu_torch.bench_pair import build_scale_pair
+    from describealign_tpu_torch.bench_pair import (build_batch_pairs,
+                                                    build_scale_pair)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -64,6 +68,12 @@ def main():
 
         def align(**kw):
             api.align_from_pcm(v, a, device="cuda", **kw)
+    elif args.pair == "batch8":
+        pairs, lens, _, _ = build_batch_pairs(workers=4)
+        args.splits = 0
+
+        def align():
+            api.align_batch_from_pcm(pairs, true_samples=lens)
     else:
         v, a = film_pair.build_film_features()
 

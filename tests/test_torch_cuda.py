@@ -1,4 +1,5 @@
-"""Card-only checks of the CUDA fine kernel against its plain version.
+"""Card-only checks of the CUDA kernels against their plain versions, and
+of the batch path against the single-pair path.
 
 Marked `cuda`: they skip where CUDA is unavailable. On an H100 (which has
 no jax, and tests/conftest.py imports jax) run them without the conftest:
@@ -87,3 +88,50 @@ def test_streamed_dp_matches_materialized_on_card(cuda_device):
     for sp, mp in zip(s_paths, m_paths):
         assert torch.equal(sp, mp)
     assert [float(x) for x in s_scores] == [float(x) for x in m_scores]
+
+
+def test_dp_kernels_match_plain_on_card(cuda_device):
+    """dp_forward / dp_backtrace (csrc/coarse_dp.cu) against the plain
+    loops on tie-heavy maps: bit-equal rows, equal paths, one launch
+    counted per call."""
+    from describealign_tpu_torch.ops import coarse_dp
+    rng = np.random.default_rng(12)
+    for n, d in ((1, 11), (9, 33), (64, 1025), (5, 17500), (64, 61438)):
+        m = (rng.integers(0, 24, (n, d)) / 8).astype(np.float32)
+        lanes = np.arange(d)[None, :]
+        m[np.abs(lanes - (np.arange(n) * 10 % (d - 1))[:, None]) <= 25] = -1e30
+        scores = torch.from_numpy(m).to(cuda_device)
+        prev = torch.from_numpy(
+            (rng.integers(0, 400, d) / 8).astype(np.float32)).to(cuda_device)
+        before = (coarse_dp.dp_forward.launches,
+                  coarse_dp.dp_backtrace.launches)
+        rows = coarse_dp.dp_forward(prev, scores)
+        assert torch.equal(rows, coarse_dp.dp_forward_plain(prev, scores))
+        for o_last in (None, torch.tensor(int(rng.integers(0, d)),
+                                          device=cuda_device)):
+            path = coarse_dp.dp_backtrace(o_last, rows)
+            assert torch.equal(path,
+                               coarse_dp.dp_backtrace_plain(o_last, rows))
+        torch.cuda.synchronize()
+        assert (coarse_dp.dp_forward.launches,
+                coarse_dp.dp_backtrace.launches) == (before[0] + 1,
+                                                     before[1] + 2)
+
+
+def test_batch_matches_single_on_card(cuda_device):
+    """align_batch_from_pcm on the card (its default device) against
+    align_from_pcm pair by pair: equal apart from the margin, which the
+    batch ships as an f16 word."""
+    from describealign_tpu_torch.alignment import api
+    pairs = []
+    for seed in (3, 11, 23):
+        video, audio, _ = build_pair(content_seconds=40.0, narration=(),
+                                     lead_in=6.0, seed=seed)
+        pairs.append((np.clip(video, -32768, 32767).astype(np.int16),
+                      np.clip(audio, -32768, 32767).astype(np.int16)))
+    for got, (v, a) in zip(api.align_batch_from_pcm(pairs), pairs):
+        want = api.align_from_pcm(v, a)
+        for i in (0, 1, 3):
+            np.testing.assert_array_equal(got[i], want[i])
+        assert got[2] == want[2] and got[4] == want[4]
+        np.testing.assert_allclose(got[5], want[5], rtol=1e-3)

@@ -31,6 +31,17 @@ out = align_from_pcm(v, a, device="cpu")
 assert len(out) == 6, len(out)
 assert abs(float(out[0][0] - out[1][0]) - 2.0) < 0.05, out[0][0] - out[1][0]
 
+# the batch path and the coarse-DP wrappers (plain versions on the CPU)
+from describealign_tpu_torch import align_batch_from_pcm
+from describealign_tpu_torch.bench_pair import BATCH_SPECS, build_batch_pairs
+from describealign_tpu_torch.ops import coarse_dp
+both = align_batch_from_pcm([(v, a), (v, a)], device="cpu")
+assert len(both) == 2 and all(len(r) == 6 for r in both)
+for r in both:
+    assert np.array_equal(r[0], out[0]) and np.array_equal(r[1], out[1])
+assert len(BATCH_SPECS) == 8
+assert coarse_dp.dp_forward.launches == coarse_dp.dp_backtrace.launches == 0
+
 # combine() in stretch mode on a WAV pair: the .txt report, no .png, and
 # one WARNING line naming matplotlib; then the CLI's --version
 import contextlib, io, os, tempfile
@@ -95,7 +106,7 @@ def test_chip_smoke_imports_only_the_port():
     assert "describealign_tpu_torch" in tops
     assert tops <= {"describealign_tpu_torch", "torch", "numpy", "contextlib",
                     "io", "json", "os", "subprocess", "sys", "tempfile",
-                    "threading", "time", "wave"}, tops
+                    "threading", "time", "warnings", "wave"}, tops
 
 
 def _imported_tops(path):

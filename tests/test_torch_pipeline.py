@@ -7,9 +7,10 @@ bit-equal (tests/test_torch_slice.py), and the stretch, mux and report code
 is the same code, so the output media must be byte-identical, and the
 .txt reports and the printed lines identical once the run directories
 are named alike; the reports' `Version:` and `Script Hash:` lines name
-each package and are left out. The port runs every directory pair through
-its sequential loop; the JAX package's batched loop must give the same
-bytes (tests/test_pipeline.py holds its two loops equal).
+each package and are left out. Directories of more than one pair go through
+the batch branch (_BatchAligner, align_batch_from_pcm) in both packages: the
+same bytes and the same printed lines, and the port's sequential loop
+(_use_batch patched off) gives the same bytes as its batch branch.
 """
 import json
 import os
@@ -177,40 +178,178 @@ def test_alignment_cache_reused(wav_pair, tmp_path, monkeypatch):
             == _read(tmp_path / "o2" / "ad_episode_1.wav", "rb"))
 
 
-def test_directory_two_pairs_matches_jax_batched(tmp_path, monkeypatch):
-    vids, auds = tmp_path / "vids", tmp_path / "auds"
+def _write_directory(root, seeds):
+    vids, auds = root / "vids", root / "auds"
     vids.mkdir()
     auds.mkdir()
-    for idx, seed in ((1, 3), (2, 11)):
+    for idx, seed in enumerate(seeds, 1):
         video, audio, _ = build_pair(content_seconds=40.0, narration=(),
                                      lead_in=6.0, seed=seed, channels=2)
         write_wav(vids / f"show_ep{idx}.wav", video)
         write_wav(auds / f"show_ep{idx}_described.wav", audio)
+    return str(vids), str(auds)
+
+
+def test_directory_two_pairs_matches_jax_batched(tmp_path, monkeypatch):
+    vids, auds = _write_directory(tmp_path, (3, 11))
     import describealign_tpu.alignment.api as japi
-    calls = {"batch": 0, "single": 0}
+    calls = {"batch": 0, "port_batch": 0, "single": 0}
     real_batch = japi.align_batch_from_pcm
+    real_port_batch = tapi.align_batch_from_pcm
     real_single = tapi.align_from_pcm
 
     def count_batch(*a, **k):
         calls["batch"] += 1
         return real_batch(*a, **k)
 
+    def count_port_batch(pairs, *a, **k):
+        calls["port_batch"] += len(pairs)
+        return real_port_batch(pairs, *a, **k)
+
     def count_single(*a, **k):
         calls["single"] += 1
         return real_single(*a, **k)
 
     monkeypatch.setattr(japi, "align_batch_from_pcm", count_batch)
+    monkeypatch.setattr(tapi, "align_batch_from_pcm", count_port_batch)
     monkeypatch.setattr(tapi, "align_from_pcm", count_single)
     monkeypatch.delenv("DESCRIBEALIGN_BATCH", raising=False)
     for name, combine, kw in (("jax", jpipe.combine, {}),
                               ("port", tpipe.combine, {"device": "cpu"})):
         out, plots = _dirs(tmp_path / name)
-        combine(str(vids), str(auds), stretch_audio=True, yes=True,
+        combine(vids, auds, stretch_audio=True, yes=True,
                 output_dir=out, alignment_dir=plots, **kw)
-    assert calls == {"batch": 1, "single": 2}
+    assert calls == {"batch": 1, "port_batch": 2, "single": 0}
     for idx in (1, 2):
         _assert_same_run(tmp_path / "port", tmp_path / "jax",
                          f"show_ep{idx}", f"ad_show_ep{idx}.wav")
+
+
+@pytest.fixture(scope="module")
+def three_pair_runs(tmp_path_factory):
+    """A 3-pair directory through both packages' batch branches:
+    (vids, auds, {name: (root, printed)})."""
+    import io
+    from contextlib import redirect_stdout
+    root = tmp_path_factory.mktemp("batch3")
+    vids, auds = _write_directory(root, (3, 11, 23))
+    runs = {}
+    for name, combine, kw in (("jax", jpipe.combine, {}),
+                              ("port", tpipe.combine, {"device": "cpu"})):
+        out, plots = _dirs(root / name)
+        with redirect_stdout(io.StringIO()) as buf:
+            combine(vids, auds, stretch_audio=True, yes=True,
+                    output_dir=out, alignment_dir=plots, **kw)
+        runs[name] = (root / name, buf.getvalue())
+    return vids, auds, runs
+
+
+def test_directory_batch_matches_jax_batched(three_pair_runs):
+    """WAVs, reports and printed lines of the port's batch branch against
+    the JAX package's batched run, line for line."""
+    _, _, runs = three_pair_runs
+    (port, printed), (jax_root, jax_printed) = runs["port"], runs["jax"]
+    for idx in (1, 2, 3):
+        _assert_same_run(port, jax_root, f"show_ep{idx}",
+                         f"ad_show_ep{idx}.wav")
+    _same_text(printed, jax_printed, port, jax_root)
+    # the batch tail is quiet: per pair only the consumer loop's lines
+    assert printed.count("  reading video file...\r") == 3
+    assert "matching audio" not in printed
+    assert "refining match" not in printed
+
+
+def test_directory_batch_matches_sequential_loop(three_pair_runs, tmp_path,
+                                                 monkeypatch):
+    vids, auds, runs = three_pair_runs
+    calls = {"batch": 0, "single": 0}
+    real_single = tapi.align_from_pcm
+
+    def count_single(*a, **k):
+        calls["single"] += 1
+        return real_single(*a, **k)
+
+    def count_batch(*a, **k):
+        calls["batch"] += 1
+        raise AssertionError("the batch path ran with _use_batch off")
+
+    assert [tpipe._use_batch(n) for n in (0, 1, 2, 8)] == [False, False,
+                                                           True, True]
+    monkeypatch.setattr(tapi, "align_from_pcm", count_single)
+    monkeypatch.setattr(tapi, "align_batch_from_pcm", count_batch)
+    monkeypatch.setattr(tpipe, "_use_batch", lambda n_work: False)
+    out, plots = _dirs(tmp_path)
+    tpipe.combine(vids, auds, stretch_audio=True, yes=True, output_dir=out,
+                  alignment_dir=plots, device="cpu")
+    assert calls == {"batch": 0, "single": 3}
+    for idx in (1, 2, 3):
+        _assert_same_run(tmp_path, runs["port"][0], f"show_ep{idx}",
+                         f"ad_show_ep{idx}.wav")
+    assert tpipe.BATCH_GROUP_SIZE == 8
+
+
+def test_batch_skip_and_cache_interleave(three_pair_runs, tmp_path,
+                                         monkeypatch, capsys):
+    """Batched directory mode keeps skip/resume and cached-alignment
+    semantics for interleaved pairs (tests/test_pipeline.py:265-310)."""
+    vids, auds, runs = three_pair_runs
+    out_dir = tmp_path / "out"
+    out_dir.mkdir()
+    plots = str(tmp_path / "plots")
+    with open(out_dir / "ad_show_ep2.wav", "wb") as f:
+        f.write(b"\0" * 200000)             # pair 2 is done: resume skip
+    seen = {"batch_pairs": 0, "single": 0}
+    real_batch = tapi.align_batch_from_pcm
+    real_single = tapi.align_from_pcm
+
+    def spy_batch(pairs, *a, **k):
+        seen["batch_pairs"] += len(pairs)
+        return real_batch(pairs, *a, **k)
+
+    def spy_single(*a, **k):
+        seen["single"] += 1
+        return real_single(*a, **k)
+
+    monkeypatch.setattr(tapi, "align_batch_from_pcm", spy_batch)
+    monkeypatch.setattr(tapi, "align_from_pcm", spy_single)
+    printed = _run(tpipe.combine, capsys, vids, auds, stretch_audio=True,
+                   yes=True, output_dir=str(out_dir), alignment_dir=plots,
+                   device="cpu")
+    assert "output file already exists, skipping..." in printed
+    assert os.path.getsize(out_dir / "ad_show_ep2.wav") == 200000
+    assert seen == {"batch_pairs": 2, "single": 0}
+    for idx in (1, 3):
+        assert (_read(out_dir / f"ad_show_ep{idx}.wav", "rb")
+                == _read(runs["port"][0] / "out" / f"ad_show_ep{idx}.wav",
+                         "rb"))
+    # a second run into a fresh output directory: pairs 1 and 3 hit the
+    # alignment cache, pair 2 aligns for the first time; one work pair
+    # stays on the sequential loop
+    tpipe.combine(vids, auds, stretch_audio=True, yes=True,
+                  output_dir=str(tmp_path / "out2"), alignment_dir=plots,
+                  device="cpu")
+    assert seen == {"batch_pairs": 2, "single": 1}
+    for idx in (1, 2, 3):
+        assert (_read(tmp_path / "out2" / f"ad_show_ep{idx}.wav", "rb")
+                == _read(runs["port"][0] / "out" / f"ad_show_ep{idx}.wav",
+                         "rb"))
+
+
+def test_batch_worker_error_surfaces_in_combine(three_pair_runs, tmp_path,
+                                                monkeypatch):
+    """An error on the batch aligner's worker thread is raised by
+    combine() on the calling thread, before any output is written."""
+    vids, auds, _ = three_pair_runs
+
+    def failing(*a, **k):
+        raise RuntimeError("align_batch_from_pcm: forced failure")
+
+    monkeypatch.setattr(tapi, "align_batch_from_pcm", failing)
+    out, plots = _dirs(tmp_path)
+    with pytest.raises(RuntimeError, match="forced failure"):
+        tpipe.combine(vids, auds, stretch_audio=True, yes=True,
+                      output_dir=out, alignment_dir=plots, device="cpu")
+    assert os.listdir(out) == []
 
 
 @pytest.fixture()
