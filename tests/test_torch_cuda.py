@@ -93,7 +93,8 @@ def test_streamed_dp_matches_materialized_on_card(cuda_device):
 def test_dp_kernels_match_plain_on_card(cuda_device):
     """dp_forward / dp_backtrace (csrc/coarse_dp.cu) against the plain
     loops on tie-heavy maps: bit-equal rows, equal paths, one launch
-    counted per call."""
+    counted per call, the cluster growing with the width; dp_backtrace on
+    rows that trip its guard."""
     from describealign_tpu_torch.ops import coarse_dp
     rng = np.random.default_rng(12)
     for n, d in ((1, 11), (9, 33), (64, 1025), (5, 17500), (64, 61438)):
@@ -107,6 +108,8 @@ def test_dp_kernels_match_plain_on_card(cuda_device):
                   coarse_dp.dp_backtrace.launches)
         rows = coarse_dp.dp_forward(prev, scores)
         assert torch.equal(rows, coarse_dp.dp_forward_plain(prev, scores))
+        assert coarse_dp.dp_forward.cluster == (1 if d <= 1024 else
+                                                2 if d <= 2048 else 16)
         for o_last in (None, torch.tensor(int(rng.integers(0, d)),
                                           device=cuda_device)):
             path = coarse_dp.dp_backtrace(o_last, rows)
@@ -116,6 +119,11 @@ def test_dp_kernels_match_plain_on_card(cuda_device):
         assert (coarse_dp.dp_forward.launches,
                 coarse_dp.dp_backtrace.launches) == (before[0] + 1,
                                                      before[1] + 2)
+    host, tripped = coarse_dp.guard_rows(100, 5000, 3)
+    rows = torch.from_numpy(host).to(cuda_device)
+    assert tripped > 40
+    assert torch.equal(coarse_dp.dp_backtrace(None, rows),
+                       coarse_dp.dp_backtrace_plain(None, rows))
 
 
 def test_batch_matches_single_on_card(cuda_device):

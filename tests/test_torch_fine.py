@@ -140,6 +140,54 @@ def test_topk_ties_take_first_columns():
     np.testing.assert_array_equal(np.asarray(jo), want)
 
 
+def test_top8_membership_turns_on_rounding_sized_changes():
+    """Where more than TOP_K candidates of a row have equal quality, which
+    8 are kept is decided by differences of the size of a rounding error:
+    a video band that repeats one pattern gives every audio frame 28 equal
+    candidates (columns l, l+P, ...), and scaling the band's later part by
+    1 +/- 4e-7 (norms unchanged, so those correlations move by 4e-7, and
+    the qualities by under 1e-4 relative) moves the whole top-8 there or
+    leaves it on the first columns. The CUDA kernel's qualities differ
+    from the plain version's by more than that on the card (3xTF32
+    products, another summation order), so on inputs with near-equal
+    candidates the two may keep different ones of equal quality; the card
+    check counts such ties apart from other differences."""
+    period, npad, cut = 20, 1024, 300
+    rng = np.random.default_rng(6)
+    pattern = rng.standard_normal((5, period)).astype(np.float32)
+    ms_v = np.ascontiguousarray(np.tile(pattern, (1, npad // period + 1))
+                                [:, :npad])
+    ms_a = (ms_v + 0.33 * rng.standard_normal(ms_v.shape)).astype(np.float32)
+
+    def norms_of(ms):
+        sq = np.pad(ms.astype(np.float64) ** 2, ((0, 0), (0, jpre.WINDOW)))
+        csum = np.concatenate([np.zeros((5, 1)), np.cumsum(sq, axis=1)], 1)
+        return np.sqrt(csum[:, jpre.WINDOW:jpre.WINDOW + npad]
+                       - csum[:, :npad]).astype(np.float32)
+
+    mask = np.ones(npad, np.float32)
+    starts = np.zeros(1, np.int32)
+    t = torch.from_numpy
+    runs = []
+    for delta in (-4e-7, 4e-7):
+        moved = ms_v.copy()
+        moved[:, cut:] *= np.float32(1 + delta)
+        q, o = tfk.fine_match(t(ms_a), t(norms_of(ms_a)), t(mask), t(moved),
+                              t(norms_of(ms_v)), t(mask), t(starts),
+                              t(starts))
+        runs.append((q[0].numpy(), o[0].numpy()))
+    (q_lo, o_lo), (q_hi, o_hi) = runs
+    assert (q_lo > 0).all() and (q_lo < jm.QUAL_MAX).all()
+    # scaled down, the later copies lose: the first 8 columns stay
+    first = np.arange(jm.BLOCK)[:, None] + period * np.arange(jm.TOP_K)
+    np.testing.assert_array_equal(o_lo, first)
+    # scaled up, they win: every kept column lies past the cut
+    assert (o_hi + jpre.WINDOW > cut).all()
+    assert (o_hi != o_lo).mean() > 0.9
+    # and the qualities hardly moved
+    assert np.abs(q_hi / q_lo - 1).max() < 1e-4
+
+
 def test_u8_codes_and_packing_bit_equal():
     """The u8 quality grid, its decode and the packed transport words are
     bit-equal on equal inputs (boundary values of the f16 grid included)."""
