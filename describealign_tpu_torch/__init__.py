@@ -10,10 +10,14 @@ are copied into it, and its own loaders build the host library (g++) and
 the CUDA kernels (nvcc) into build/describealign_tpu_torch/.
 
     from describealign_tpu_torch import (align_batch_from_pcm,
-                                         align_from_pcm, combine)
+                                         align_from_pcm, combine,
+                                         features_for)
     x, y, sim, path, slope, margin = align_from_pcm(video_i16, audio_i16,
                                                     device="cuda")
     results = align_batch_from_pcm([(video_i16, audio_i16), ...])
+    # features='device' on either entry point computes the features on
+    # the card from the int16 PCM (two hand-written CUDA kernels)
+    feats, n_frames = features_for(pcm)             # 5 numpy streams
     combine("video.mp4", "audio.mp3")          # or the CLI:
     # describealign-tpu-torch video.mp4 audio.mp3
 """
@@ -44,6 +48,13 @@ def align(*args, **kwargs):
     """Align one feature pair; see alignment.api.align."""
     from .alignment.api import align as _align
     return _align(*args, **kwargs)
+
+
+def features_for(*args, **kwargs):
+    """PCM in, the 5 feature streams (numpy) and the true frame count out;
+    see pipeline.features_for."""
+    from .pipeline import features_for as _features_for
+    return _features_for(*args, **kwargs)
 
 
 def align_batch_from_pcm(*args, **kwargs):

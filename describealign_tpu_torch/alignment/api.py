@@ -13,6 +13,13 @@ align_batch_from_pcm pipelines a list of pairs: the calling thread
 extracts features and dispatches each pair's matcher, pool threads wait
 for each pair's one result buffer and run the host stages.
 
+features='device' (both PCM entry points; the JAX package reads
+DESCRIBEALIGN_FEATURES=device) uploads the int16 PCM instead, each stream
+padded to its own bucket, and runs matching.extract_and_match: the five
+streams computed on the device in f32 (ops/features.py, two CUDA kernels
+on the card), the single-shot matcher, and the native lis_from_match on
+the unquantized qualities (api.py:208-221, 265-311).
+
 Not ported (link workarounds of the TPU setup, not semantics): the compact
 transports, the pull modes and the separate pull pool, and the profiler
 directory. The port reads no DESCRIBEALIGN_* setting; its defaults are the
@@ -37,6 +44,7 @@ BUCKET_FRAMES = 210 * 64          # shape bucket quantum (64 s)
 PAD_MARGIN = 210 + preprocess.WINDOW
 PCM_BUCKET = 210 * BUCKET_FRAMES  # samples; 210 samples per feature frame
 DEFAULT_FIT_BACKEND = 'native'
+FEATURE_PATHS = ('host', 'device')
 
 
 def _bucket_pad(n):
@@ -87,6 +95,48 @@ def host_features_padded(pcm_i16, true_samples=None, npad=None):
     return out, n
 
 
+def _feature_path(features):
+    if features not in FEATURE_PATHS:
+        raise ValueError(f"features={features!r}: expected one of "
+                         f"{FEATURE_PATHS}")
+    return features
+
+
+def _pcm_to_device(pcm_i16, device):
+    """(C, S) int16 PCM zero-padded to its bucket, as _pad_pcm_i16 pads it,
+    on the device: on the card through pinned memory, copied without a
+    host wait (the caching host allocator keeps the buffer until the copy
+    is done)."""
+    c, s = pcm_i16.shape
+    if device.type != 'cuda':
+        return torch.from_numpy(np.ascontiguousarray(_pad_pcm_i16(pcm_i16)))
+    buf = torch.empty((c, _padded_len(s)), dtype=torch.int16,
+                      pin_memory=True)
+    host = buf.numpy()
+    host[:, :s] = pcm_i16
+    host[:, s:] = 0
+    return buf.to(device, non_blocking=True)
+
+
+def _single_shot_parts(out):
+    """extract_and_match's outputs as the host stages take them: offsets
+    as int16 (half the bytes of the fine pass's int32), the margin last."""
+    quals, offs, starts, feats_a, feats_v, margin = out
+    return quals, offs.to(torch.int16), starts, feats_a, feats_v, margin
+
+
+def _host_stages_single_shot(parts, na, nv, fit_backend, device,
+                             quiet=False):
+    """lis_from_match on the single-shot matcher's unquantized qualities,
+    then the host tail with the retry (api.py:1107-1112). parts: numpy
+    arrays in _single_shot_parts' order."""
+    quals, offs, starts, feats_a, feats_v, margin = parts
+    y, x = lis.lis_from_match(quals, offs, starts)
+    return _host_stages_from_path(y, x, feats_a, feats_v, na, nv,
+                                  fit_backend, margin=float(margin),
+                                  device=device, quiet=quiet)
+
+
 def _upload(feats_np, device):
     """The f16 feature round trip of the JAX package's upload
     (api.py:185,192): the matcher sees f16-rounded features."""
@@ -109,7 +159,8 @@ def _timer(timings, device):
 
 def align_from_pcm(video_pcm_i16, audio_pcm_i16, fit_backend=None,
                    video_samples=None, audio_samples=None,
-                   combine_prints=False, device='cuda', timings=None):
+                   combine_prints=False, device='cuda', timings=None,
+                   features='host'):
     """int16 PCM (channels, samples) in, alignment out.
 
     video_samples/audio_samples: true sample counts when the PCM arrays are
@@ -119,7 +170,12 @@ def align_from_pcm(video_pcm_i16, audio_pcm_i16, fit_backend=None,
     addition to align()'s own lines. device: where the matcher runs.
     timings: an optional dict that receives per-stage seconds ('features',
     'coarse_map', 'coarse_dp', 'fine', 'lis_tail'); the device is then
-    synchronized at every stage boundary.
+    synchronized at every stage boundary. features: 'host' (the native C++
+    extractor, both streams padded to a common bucket, f16 upload, the
+    streamed matcher) or 'device' (int16 PCM upload, the device
+    extractor, the single-shot matcher; 'features' is then the upload
+    plus the extraction, and combine_prints adds no line, as in the JAX
+    package).
 
     Returns (audio_times_s, video_times_s, similarity_percent, path,
     median_slope, coarse_margin) - align()'s 5-tuple plus the margin; the
@@ -128,6 +184,20 @@ def align_from_pcm(video_pcm_i16, audio_pcm_i16, fit_backend=None,
     device = torch.device(device)
     fit_backend = fit_backend or DEFAULT_FIT_BACKEND
     mark = _timer(timings, device) if timings is not None else None
+    if _feature_path(features) == 'device':
+        na = (audio_samples or audio_pcm_i16.shape[1]) // 210
+        nv = (video_samples or video_pcm_i16.shape[1]) // 210
+        print("  memorizing video...        \r", end='')
+        dev_a = _pcm_to_device(audio_pcm_i16, device)
+        dev_v = _pcm_to_device(video_pcm_i16, device)
+        print("  matching audio...  \r", end='')
+        parts = _single_shot_parts(matching.extract_and_match(
+            dev_a, na, dev_v, nv, mark=mark))
+        result = _host_stages_single_shot(
+            [t.cpu().numpy() for t in parts], na, nv, fit_backend, device)
+        if mark:
+            mark('lis_tail')
+        return result
     if combine_prints:
         print("  computing video features... \r", end='')
     else:
@@ -313,7 +383,7 @@ def _require_device(device):
 
 def align_batch_from_pcm(pairs, fit_backend=None, device_depth=4,
                          host_workers=None, true_samples=None,
-                         device='cuda'):
+                         device='cuda', features='host'):
     """Batch fast path: list of (video_pcm_i16, audio_pcm_i16) pairs.
 
     The calling thread extracts each pair's features and dispatches its
@@ -322,11 +392,14 @@ def align_batch_from_pcm(pairs, fit_backend=None, device_depth=4,
     buffer and run the host stages (the native LIS, fit and pass 2 release
     the GIL). true_samples: per pair (video, audio) true sample counts
     when the PCM arrays are padded. device: where the matcher runs.
+    features: as in align_from_pcm; 'device' dispatches each pair's PCM
+    upload and extract_and_match (api.py:265-311).
 
     Returns a list of align_from_pcm's 6-tuples, one per pair, in input
     order. The first error of any pair is raised.
     """
     device = _require_device(device)
+    _feature_path(features)
     fit_backend = fit_backend or DEFAULT_FIT_BACKEND
     if host_workers is None:
         # cores + 1: one thread may wait for the device while the others
@@ -334,6 +407,9 @@ def align_batch_from_pcm(pairs, fit_backend=None, device_depth=4,
         host_workers = min(4, (os.cpu_count() or 1) + 1)
     if true_samples is None:
         true_samples = [(v.shape[1], a.shape[1]) for (v, a) in pairs]
+    if features == 'device':
+        return _align_batch_device(pairs, true_samples, fit_backend,
+                                   host_workers, device_depth, device)
     return _align_batch_streamed(pairs, true_samples, fit_backend,
                                  host_workers, device_depth, device)
 
@@ -350,19 +426,17 @@ def _pull_dense_parts(buf, n_tracks):
     return buf[:, :-(w_st + 2)], starts_tracks, margin
 
 
-def _align_batch_streamed(pairs, true_samples, fit_backend, host_workers,
-                          device_depth, device):
-    """Batch via the streaming matcher, pipelined in two stages
-    (api.py:380-664, dense transport):
+def _pipelined(pairs, true_samples, dispatch, refine, host_workers,
+               device_depth, device):
+    """The batch pipeline of both feature paths (api.py:265-311, 380-664).
 
-    - the calling thread extracts pair i's features (native code, GIL
-      released), uploads them as one pinned (2, 5, Npad) f16 array,
-      dispatches the matcher and the one-buffer transport, starts the
-      buffer's copy into pinned host memory and records an event - all on
-      the current stream, nothing waits - then moves to pair i + 1;
-    - a pool thread waits for the event, releases the pair's in-flight slot
-      as soon as the bytes are on the host, and runs the CPU stages (native
-      LIS feed + refinement tail) under the core-count token.
+    - the calling thread runs dispatch(v, a, sv, sa) for each pair in
+      order: it enqueues the pair's upload, matcher and device-to-host
+      copies on the current stream and returns (parts, event) without
+      waiting (event None on the CPU), then moves to the next pair;
+    - a pool thread waits for the event, releases the pair's in-flight
+      slot as soon as the bytes are on the host, and returns
+      refine(parts, sv, sa): the CPU stages, under the core-count token.
 
     Outstanding device results stay bounded by device_depth (+1 being
     copied). The low-confidence retry runs its matcher from the pool
@@ -372,6 +446,68 @@ def _align_batch_streamed(pairs, true_samples, fit_backend, host_workers,
     """
     cuda = device.type == 'cuda'
     in_flight = threading.Semaphore(max(2, device_depth + 1))
+
+    def settle_and_refine(parts, done, sv, sa):
+        try:
+            if done is not None:
+                done.synchronize()
+        finally:
+            in_flight.release()
+        with _HOST_TOKEN:
+            return refine(parts, sv, sa)
+
+    def on_device(fn):
+        # the current device is per thread
+        def run(*args):
+            with torch.cuda.device(device):
+                return fn(*args)
+        return run if cuda else fn
+
+    futs = []
+    pool = ThreadPoolExecutor(max_workers=host_workers)
+    try:
+        for (v, a), (sv, sa) in zip(pairs, true_samples):
+            in_flight.acquire()
+            try:
+                parts, done = on_device(dispatch)(v, a, sv, sa)
+            except BaseException:
+                # a failing dispatch must not keep its slot; the first
+                # error aborts the batch
+                in_flight.release()
+                raise
+            futs.append(pool.submit(on_device(settle_and_refine), parts,
+                                    done, sv, sa))
+        return [f.result() for f in futs]
+    finally:
+        # pairs already handed to the pool finish (and release their
+        # slots); none is left running when the call returns or raises
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _to_host(tensors, device):
+    """Start copying device tensors into pinned host memory: (host
+    tensors, the event that marks the copies done). On the CPU: (the
+    tensors, None)."""
+    if device.type != 'cuda':
+        return list(tensors), None
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def _align_batch_streamed(pairs, true_samples, fit_backend, host_workers,
+                          device_depth, device):
+    """The host-feature batch (api.py:380-664, dense transport): the
+    dispatching thread extracts pair i's features (native code, GIL
+    released), uploads them as one pinned (2, 5, Npad) f16 array,
+    dispatches the matcher and the one-buffer transport and starts the
+    buffer's copy; the pool thread runs the native LIS feed and the
+    refinement tail (_pipelined)."""
+    cuda = device.type == 'cuda'
 
     def dispatch(v, a, sv, sa):
         npad = max(_bucket_pad(sv // 210), _bucket_pad(sa // 210))
@@ -389,54 +525,42 @@ def _align_batch_streamed(pairs, true_samples, fit_backend, host_workers,
             dev_av, na, nv)
         combo = matching.concat_chunks_with_starts(chunks, starts_dev,
                                                    margin_dev)
-        if not cuda:
-            return combo, None, starts_dev.shape[0], fa, fv, na, nv
-        host_buf = torch.empty(combo.shape, dtype=combo.dtype,
-                               pin_memory=True)
-        host_buf.copy_(combo, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return host_buf, done, starts_dev.shape[0], fa, fv, na, nv
+        (host_buf,), done = _to_host([combo], device)
+        return (host_buf, starts_dev.shape[0], fa, fv, na, nv), done
 
-    def pull_and_refine(host_buf, done, n_tracks, fa, fv, na, nv):
-        try:
-            if done is not None:
-                done.synchronize()
-        finally:
-            in_flight.release()
+    def refine(parts, sv, sa):
+        host_buf, n_tracks, fa, fv, na, nv = parts
         packed, starts_tracks, margin = _pull_dense_parts(host_buf.numpy(),
                                                           n_tracks)
-        with _HOST_TOKEN:
-            y, x = _consume_stream(iter([packed]), starts_tracks)
-            return _host_stages_from_path(y, x, fa, fv, na, nv, fit_backend,
-                                          margin=margin, device=device,
-                                          quiet=True)
+        y, x = _consume_stream(iter([packed]), starts_tracks)
+        return _host_stages_from_path(y, x, fa, fv, na, nv, fit_backend,
+                                      margin=margin, device=device,
+                                      quiet=True)
 
-    def on_device(fn):
-        # the current device is per thread
-        def run(*args):
-            with torch.cuda.device(device):
-                return fn(*args)
-        return run if cuda else fn
+    return _pipelined(pairs, true_samples, dispatch, refine, host_workers,
+                      device_depth, device)
 
-    futs = []
-    pool = ThreadPoolExecutor(max_workers=host_workers)
-    try:
-        for (v, a), (sv, sa) in zip(pairs, true_samples):
-            in_flight.acquire()
-            try:
-                job = on_device(dispatch)(v, a, sv, sa)
-            except BaseException:
-                # a failing dispatch must not keep its slot; the first
-                # error aborts the batch
-                in_flight.release()
-                raise
-            futs.append(pool.submit(on_device(pull_and_refine), *job))
-        return [f.result() for f in futs]
-    finally:
-        # pairs already handed to the pool finish (and release their
-        # slots); none is left running when the call returns or raises
-        pool.shutdown(wait=True, cancel_futures=True)
+
+def _align_batch_device(pairs, true_samples, fit_backend, host_workers,
+                        device_depth, device):
+    """The device-feature batch (api.py:265-311): the dispatching thread
+    uploads both streams' PCM, each padded to its own bucket, dispatches
+    extract_and_match and starts the copies of its six outputs; the pool
+    thread runs lis_from_match and the refinement tail (_pipelined)."""
+
+    def dispatch(v, a, sv, sa):
+        out = matching.extract_and_match(
+            _pcm_to_device(a, device), sa // 210,
+            _pcm_to_device(v, device), sv // 210)
+        return _to_host(_single_shot_parts(out), device)
+
+    def refine(parts, sv, sa):
+        return _host_stages_single_shot([t.numpy() for t in parts],
+                                        sa // 210, sv // 210, fit_backend,
+                                        device, quiet=True)
+
+    return _pipelined(pairs, true_samples, dispatch, refine, host_workers,
+                      device_depth, device)
 
 
 def _rescale_native(feats_a_np, feats_v_np, na, nv, xi, yi):

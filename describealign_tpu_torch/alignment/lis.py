@@ -1,8 +1,10 @@
-"""Streaming weighted LIS over the packed matcher chunks (native only).
+"""Weighted LIS over the matcher's output (native only): streaming over the
+packed chunks, or single-shot over the unquantized candidates.
 
 Twin of describealign_tpu/alignment/lis.py's `LisStream` (lis.py:134-345)
-without the sortedcontainers import and the pure-Python fallbacks: the port
-always feeds the native C++ stream (csrc/dp.cpp). Exact reference
+and `lis_from_match` (lis.py:86-131) without the sortedcontainers import
+and the pure-Python fallbacks: the port always calls the native C++
+(csrc/dp.cpp). Exact reference
 semantics (describealign.py:654-699): candidates in (audio, video, qual) order, a frontier keyed by
 video index holding the best cumulative quality, dominated entries pruned,
 backpointers reconstruct the chain.
@@ -16,9 +18,42 @@ from .native import native_lib
 # dp.cpp lis_stream_new rejects caps over 2^28 keys (~355 h of video)
 LIS_STREAM_KEY_CAP = 1 << 28
 
+_F32P = ctypes.POINTER(ctypes.c_float)
 _I16P = ctypes.POINTER(ctypes.c_int16)
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _I64P = ctypes.POINTER(ctypes.c_longlong)
+
+
+def lis_from_match(quals, offs, starts):
+    """Fused flatten + sort + LIS straight off the single-shot matcher's
+    output (the JAX package's native branch).
+
+    quals: (B, 210, S) f32, 0 marks empty; offs: (B, 210, S) int16 band
+    offsets; starts: (B, G) int32 band starts. The S slots split into G
+    equal groups: slot j's video frame is starts[b, j // (S // G)] + off
+    (a 1-D starts is one group). Exact duplicates from overlapping bands
+    collapse like the reference's per-frame candidate sets. Returns the
+    (video_path, audio_path) int64 chain."""
+    quals = np.ascontiguousarray(quals, np.float32)
+    offs = np.ascontiguousarray(offs, np.int16)
+    starts = np.ascontiguousarray(starts, np.int32)
+    if starts.ndim == 1:
+        starts = starts[:, None]
+    nb, blk, k = quals.shape
+    cap = nb * blk * k + 1
+    out_v = np.empty(cap, np.int64)
+    out_a = np.empty(cap, np.int64)
+    out_len = ctypes.c_longlong(0)
+    rc = native_lib().lis_from_match(
+        quals.ctypes.data_as(_F32P), offs.ctypes.data_as(_I16P),
+        starts.ctypes.data_as(_I32P), ctypes.c_longlong(nb),
+        ctypes.c_longlong(blk), ctypes.c_longlong(k),
+        ctypes.c_longlong(starts.shape[1]), out_v.ctypes.data_as(_I64P),
+        out_a.ctypes.data_as(_I64P), ctypes.byref(out_len))
+    if rc != 0:
+        raise RuntimeError("native lis_from_match failed")
+    m = out_len.value
+    return out_v[:m].copy(), out_a[:m].copy()
 
 
 class LisStream:

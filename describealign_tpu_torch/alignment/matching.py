@@ -12,6 +12,11 @@ block against a 768-frame video band around each track with the fine
 kernel (ops/fine_kernel.py), gates the rescue track, and packs the
 candidates into the u8-quality transport rows the native LIS reads.
 
+The device-feature path (extract_and_match) computes the feature stacks
+from int16 PCM on the device (ops/features.py: two CUDA kernels on the
+card) and runs the single-shot matcher (_match_core: the fine pass over
+all blocks at once, qualities left unquantized).
+
 The DP's steps run in ops/coarse_dp.py (dp_forward, dp_backtrace: two
 hand-written CUDA kernels on the card, torch loops on the CPU). Above
 COARSE_STREAM_ELEMS score-map elements (long media: a 95-minute film) it
@@ -468,3 +473,58 @@ def match_stream_pair(dev_av, len_a, len_v):
     host wait in between: the JAX package's one-dispatch matcher
     (_match_pair_fused) needs no other counterpart."""
     return match_stream(dev_av[0], len_a, dev_av[1], len_v)
+
+
+# ---------------------------------------------------------------------------
+# The single-shot matcher and the device-feature path
+# ---------------------------------------------------------------------------
+
+def _match_core(ms_a, norms_a, energy_a, len_a,
+                ms_v, norms_v, energy_v, len_v, nf=None, mark=None):
+    """All-in-one matcher (matching.py:1260-1279): the coarse tracks, then
+    the fine pass over every block at once (one fine_match call per track).
+
+    ms_*, norms_*: (5, Npad_*) preprocessed features (the two widths may
+    differ); energy_*: (Npad_*,) raw energy feature; len_*: true frame
+    counts. Returns (quals (B, 210, G*K) f32 unquantized, offs (B, 210,
+    G*K) i32, starts (B, G) i32, centers (B,) best-track offset frames,
+    margin f32 scalar); slot j's video frame is starts[b, j // (K // 2)]
+    + offs[b, l, j]."""
+    a_mask, v_mask, starts_tracks, centers, margin = _coarse_tracks(
+        ms_a, norms_a, energy_a, len_a, ms_v, norms_v, energy_v, len_v,
+        nf=nf, mark=mark)
+    nb = starts_tracks.shape[1]
+    quals, offs, starts = _fine_tracks(ms_a, norms_a, a_mask, ms_v, norms_v,
+                                       v_mask, starts_tracks, 0, nb, nb)
+    if mark:
+        mark('fine')
+    return quals, offs, starts, centers, margin
+
+
+def extract_and_match(pcm_a_i16, len_a, pcm_v_i16, len_v, mark=None):
+    """The device-feature pipeline (matching.py:423-459): int16 PCM ->
+    features -> preprocess -> single-shot match, all on the PCM's device.
+
+    pcm_*_i16: (C, S_pad) int16 tensors, each padded to its own bucket;
+    len_*: true 210-fps frame counts. The features are f32 (no f16 round
+    trip), cut to S_pad // 210 frames and zero from the true length on.
+    mark: an optional stage timer ('features', then match's stages).
+
+    Returns (quals, offs, starts, feats_a (5, S_pad_a // 210),
+    feats_v (5, S_pad_v // 210), margin)."""
+    from ..ops.features import feature_stack
+    feats = []
+    for pcm, n_true in ((pcm_a_i16, len_a), (pcm_v_i16, len_v)):
+        f = feature_stack(pcm, pcm.shape[1] // BLOCK)
+        idx = torch.arange(f.shape[1], device=f.device)[None, :]
+        feats.append(torch.where(idx < n_true, f,
+                                 torch.zeros((), device=f.device)))
+    feats_a, feats_v = feats
+    if mark:
+        mark('features')
+    ms_a, norms_a = preprocess_features(feats_a)
+    ms_v, norms_v = preprocess_features(feats_v)
+    quals, offs, starts, _, margin = _match_core(
+        ms_a, norms_a, feats_a[0], len_a, ms_v, norms_v, feats_v[0], len_v,
+        mark=mark)
+    return quals, offs, starts, feats_a, feats_v, margin

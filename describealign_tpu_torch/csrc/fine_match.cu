@@ -180,7 +180,7 @@ fine_match_kernel(const float* __restrict__ ms_a,
                   const float* __restrict__ v_mask,
                   const int* __restrict__ v_starts,
                   const int* __restrict__ a_starts,
-                  int npad, float log_cut, float exp_coef,
+                  int npad_a, int npad_v, float log_cut, float exp_coef,
                   float* __restrict__ quals, int* __restrict__ offs) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* raw_v = reinterpret_cast<float*>(smem + OFF_RAWV);
@@ -198,23 +198,23 @@ fine_match_kernel(const float* __restrict__ ms_a,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   // streamed chunks pad past the last real block: clamp as fine_kernel.py
-  const int a0 = min(max(a_starts[b], 0), npad - SEG_A);
-  const int v0 = min(max(v_starts[b], 0), npad - SEG_V);
+  const int a0 = min(max(a_starts[b], 0), npad_a - SEG_A);
+  const int v0 = min(max(v_starts[b], 0), npad_v - SEG_V);
   const int a_al = a0 & ~3, a_res = a0 - a_al;
   const int v_al = v0 & ~3, v_res = v0 - v_al;
-  // 16-byte chunks of the video window; ends at <= npad (4 | npad)
+  // 16-byte chunks of the video window; ends at <= npad_v (4 | npad_v)
   const int nv4 = (v_res + SEG_V + 3) >> 2;
 
   // --- stage: windows by cp.async, while the masks and norms are read ---
   for (int i = tid; i < NF * nv4; i += THREADS) {
     const int f = i / nv4, c = i - f * nv4;
     cp_async16(raw_v + f * V_RAW + 4 * c,
-               ms_v + (size_t)f * npad + v_al + 4 * c);
+               ms_v + (size_t)f * npad_v + v_al + 4 * c);
   }
   for (int i = tid; i < NF * (A_RAW / 4); i += THREADS) {
     const int f = i / (A_RAW / 4), c = i - f * (A_RAW / 4);
     cp_async16(raw_a + f * A_RAW + 4 * c,
-               ms_a + (size_t)f * npad + a_al + 4 * c);
+               ms_a + (size_t)f * npad_a + a_al + 4 * c);
   }
   asm volatile("cp.async.commit_group;\n" ::);
   if (warp == 0) {
@@ -230,7 +230,7 @@ fine_match_kernel(const float* __restrict__ ms_a,
   } else {
     for (int i = tid - 32; i < NF * 16 * MT; i += THREADS - 32) {
       const int f = i / (16 * MT), r = i - f * (16 * MT);
-      s_ra[i] = 1.0f / norms_a[(size_t)f * npad + a0 + r];
+      s_ra[i] = 1.0f / norms_a[(size_t)f * npad_a + a0 + r];
     }
     for (int r = tid - 32; r < 16 * MT; r += THREADS - 32)
       s_am[r] = r < BLOCK ? a_mask[a0 + r] : 0.0f;
@@ -239,7 +239,7 @@ fine_match_kernel(const float* __restrict__ ms_a,
   const int ncol = *s_ncol;
   for (int i = tid; i < NF * FINE_W; i += THREADS) {
     const int f = i / FINE_W, p = i - f * FINE_W;
-    s_rv[i] = p < ncol ? 1.0f / norms_v[(size_t)f * npad + v0 + s_col[p]]
+    s_rv[i] = p < ncol ? 1.0f / norms_v[(size_t)f * npad_v + v0 + s_col[p]]
                        : 0.0f;
   }
   // padded positions read column 0: in bounds, masked in the epilogue
@@ -368,15 +368,18 @@ fine_match_kernel(const float* __restrict__ ms_a,
 }  // namespace
 
 // Launch over c blocks on `stream`; returns a CUDA error code (0 = ok).
-// Inputs: ms_*, norms_* (5, npad) f32 with 4 | npad and 16-byte aligned
-// rows; masks (npad,) f32 0/1; v_starts, a_starts (c,) i32. Outputs: quals
+// Inputs: ms_a, norms_a (5, npad_a) and ms_v, norms_v (5, npad_v) f32 with
+// 4 | npad_* and 16-byte aligned rows; masks (npad_a,), (npad_v,) f32 0/1;
+// v_starts, a_starts (c,) i32. The two streams may differ in width (the
+// device-feature path pads each to its own bucket). Outputs: quals
 // (c, 210, 8) f32, offs (c, 210, 8) i32 in-band offsets (video frame =
 // v_starts[b] + off).
 extern "C" int fine_match_launch(const float* ms_a, const float* norms_a,
                                  const float* a_mask, const float* ms_v,
                                  const float* norms_v, const float* v_mask,
                                  const int* v_starts, const int* a_starts,
-                                 long long npad, long long c, float log_cut,
+                                 long long npad_a, long long npad_v,
+                                 long long c, float log_cut,
                                  float exp_coef, float* quals, int* offs,
                                  void* stream) {
   // above 48 KB of dynamic shared memory only after an opt-in (per device)
@@ -388,7 +391,7 @@ extern "C" int fine_match_launch(const float* ms_a, const float* norms_a,
     fine_match_kernel<<<(unsigned)c, THREADS, SMEM_BYTES,
                         (cudaStream_t)stream>>>(
         ms_a, norms_a, a_mask, ms_v, norms_v, v_mask, v_starts, a_starts,
-        (int)npad, log_cut, exp_coef, quals, offs);
+        (int)npad_a, (int)npad_v, log_cut, exp_coef, quals, offs);
   }
   return (int)cudaGetLastError();
 }

@@ -49,7 +49,7 @@ def load_library():
         lib.fine_match_launch.restype = ctypes.c_int
         lib.fine_match_launch.argtypes = (
             [ctypes.c_void_p] * 8
-            + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_float,
+            + [ctypes.c_longlong] * 3 + [ctypes.c_float,
                ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
                ctypes.c_void_p])
         _lib = lib
@@ -58,15 +58,15 @@ def load_library():
 
 def _check(ms_a, norms_a, a_mask, ms_v, norms_v, v_mask, v_starts,
            a_starts):
-    npad = ms_a.shape[1]
+    npad_a, npad_v = ms_a.shape[1], ms_v.shape[1]
     c = v_starts.shape[0]
     for name, t, shape, dtype in (
-            ('ms_a', ms_a, (5, npad), torch.float32),
-            ('norms_a', norms_a, (5, npad), torch.float32),
-            ('a_mask', a_mask, (npad,), torch.float32),
-            ('ms_v', ms_v, (5, npad), torch.float32),
-            ('norms_v', norms_v, (5, npad), torch.float32),
-            ('v_mask', v_mask, (npad,), torch.float32),
+            ('ms_a', ms_a, (5, npad_a), torch.float32),
+            ('norms_a', norms_a, (5, npad_a), torch.float32),
+            ('a_mask', a_mask, (npad_a,), torch.float32),
+            ('ms_v', ms_v, (5, npad_v), torch.float32),
+            ('norms_v', norms_v, (5, npad_v), torch.float32),
+            ('v_mask', v_mask, (npad_v,), torch.float32),
             ('v_starts', v_starts, (c,), torch.int32),
             ('a_starts', a_starts, (c,), torch.int32)):
         if tuple(t.shape) != shape or t.dtype != dtype:
@@ -77,17 +77,19 @@ def _check(ms_a, norms_a, a_mask, ms_v, norms_v, v_mask, v_starts,
                              f"ms_a on {ms_a.device}")
         if not t.is_contiguous():
             raise ValueError(f"fine_match: {name} is not contiguous")
-    if npad < SEG_V:
-        raise ValueError(f"fine_match: Npad={npad} < {SEG_V}")
+    if npad_a < SEG_A or npad_v < SEG_V:
+        raise ValueError(f"fine_match: Npad {npad_a} (audio), {npad_v} "
+                         f"(video) below {SEG_A}, {SEG_V}")
 
 
 def fine_match(ms_a, norms_a, a_mask, ms_v, norms_v, v_mask, v_starts,
                a_starts):
     """Fused fine pass over one track's blocks.
 
-    ms_*, norms_*: (5, Npad) f32; *_mask: (Npad,) f32 0/1; v_starts: (C,)
-    i32 clipped band starts; a_starts: (C,) i32 first audio frame per block
-    (clamped to [0, Npad - 296]; padded blocks are zeroed by the caller).
+    ms_a, norms_a: (5, Npad_a) f32, a_mask (Npad_a,) f32 0/1, and likewise
+    the video's at its own width Npad_v; v_starts: (C,) i32 clipped band
+    starts; a_starts: (C,) i32 first audio frame per block (clamped to
+    [0, Npad_a - 296]; padded blocks are zeroed by the caller).
     Returns (quals (C, 210, 8) f32, offs (C, 210, 8) i32 in-band offsets;
     video frame = v_starts[c] + off); quality 0 marks an empty slot.
     """
@@ -99,9 +101,9 @@ def fine_match(ms_a, norms_a, a_mask, ms_v, norms_v, v_mask, v_starts,
     if dev.type != 'cuda':
         raise ValueError(f"fine_match: unsupported device {dev}")
     # the kernel stages windows with 16-byte copies from 16-byte aligned rows
-    if ms_a.shape[1] % 4:
-        raise ValueError(f"fine_match: Npad={ms_a.shape[1]} is not a "
-                         f"multiple of 4")
+    if ms_a.shape[1] % 4 or ms_v.shape[1] % 4:
+        raise ValueError(f"fine_match: Npad {ms_a.shape[1]}, {ms_v.shape[1]}"
+                         f" is not a multiple of 4")
     for name, t in (('ms_a', ms_a), ('ms_v', ms_v)):
         if t.data_ptr() % 16:
             raise ValueError(f"fine_match: {name} is not 16-byte aligned")
@@ -114,7 +116,8 @@ def fine_match(ms_a, norms_a, a_mask, ms_v, norms_v, v_mask, v_starts,
         rc = lib.fine_match_launch(
             ms_a.data_ptr(), norms_a.data_ptr(), a_mask.data_ptr(),
             ms_v.data_ptr(), norms_v.data_ptr(), v_mask.data_ptr(),
-            v_starts.data_ptr(), a_starts.data_ptr(), ms_a.shape[1], c,
+            v_starts.data_ptr(), a_starts.data_ptr(), ms_a.shape[1],
+            ms_v.shape[1], c,
             LOG_CUT, EXP_COEF, quals.data_ptr(), offs.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"fine_match kernel launch failed: CUDA error "
@@ -133,27 +136,27 @@ def fine_match_work(a_mask, v_mask, v_starts, a_starts):
     the video-mask columns of its band [l, l + 558], at 5 features x 41
     taps each. Bytes: each input frame a block reads, counted once over
     the call (the feature windows, norms and masks), and the outputs."""
-    npad = a_mask.shape[0]
+    npad_a, npad_v = a_mask.shape[0], v_mask.shape[0]
     dev = a_mask.device
-    a0 = torch.clamp(a_starts.long(), 0, npad - SEG_A)[:, None]
-    v0 = torch.clamp(v_starts.long(), 0, npad - SEG_V)[:, None]
+    a0 = torch.clamp(a_starts.long(), 0, npad_a - SEG_A)[:, None]
+    v0 = torch.clamp(v_starts.long(), 0, npad_v - SEG_V)[:, None]
     rows = torch.arange(BLOCK, device=dev)
     vm = (v_mask[v0 + torch.arange(FINE_W, device=dev)] > 0).long()
     csum = torch.nn.functional.pad(torch.cumsum(vm, 1), (1, 0))
     in_band = csum[:, rows + 2 * FINE_HALF_BAND + 1] - csum[:, rows]
     fma = int(torch.sum(in_band * (a_mask[a0 + rows] > 0))) * 5 * WINDOW
 
-    def frames(starts, count, keep=None):
+    def frames(starts, count, npad, keep=None):
         used = torch.zeros(npad, dtype=torch.bool, device=dev)
         used[(starts + torch.arange(count, device=dev)).reshape(-1)] = True
         return int(torch.sum(used if keep is None else used & keep))
 
     f32 = 4
-    nbytes = (frames(a0, BLOCK + WINDOW - 1) * 5 * f32          # ms_a
-              + frames(a0, BLOCK) * 6 * f32                     # norms_a, mask
-              + frames(v0, SEG_V) * 5 * f32                     # ms_v
-              + frames(v0, FINE_W) * f32                        # v_mask
-              + frames(v0, FINE_W, v_mask > 0) * 5 * f32        # norms_v
+    nbytes = (frames(a0, BLOCK + WINDOW - 1, npad_a) * 5 * f32  # ms_a
+              + frames(a0, BLOCK, npad_a) * 6 * f32             # norms_a, mask
+              + frames(v0, SEG_V, npad_v) * 5 * f32             # ms_v
+              + frames(v0, FINE_W, npad_v) * f32                # v_mask
+              + frames(v0, FINE_W, npad_v, v_mask > 0) * 5 * f32  # norms_v
               + 2 * a_starts.numel() * 4                        # starts
               + a_starts.numel() * BLOCK * TOP_K * 8)           # outputs
     return fma, nbytes

@@ -20,17 +20,36 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from .constants import (AUDIO_EXTENSIONS, DEFAULT_ALIGNMENT_DIR,
-                        DEFAULT_OUTPUT_DIR, IS_RUNNING_WINDOWS,
-                        PLOT_ALIGNMENT_TO_FILE, VIDEO_EXTENSIONS)
+from .constants import (AUDIO_EXTENSIONS, AUDIO_SAMPLE_RATE,
+                        DEFAULT_ALIGNMENT_DIR, DEFAULT_OUTPUT_DIR,
+                        IS_RUNNING_WINDOWS, PLOT_ALIGNMENT_TO_FILE,
+                        VIDEO_EXTENSIONS)
 from .utils import aligncache
 from .utils.files import ensure_folders_exist, get_sorted_filenames
+
+PCM_BUCKET_SECONDS = 60
 
 
 def _low_ram_std(arr):
     avg = np.mean(arr, dtype=np.float64)
     return np.sqrt(np.einsum('ij,ij->i', arr, arr, dtype=np.float64)
                    / arr.size - avg ** 2)
+
+
+def features_for(pcm, device='cuda'):
+    """Bucketed feature extraction utility for module users
+    (pipeline.py:33-47): zero-pads PCM (channels, samples) to a 60-second
+    quantum and returns (list of 5 numpy f32 streams, true 210fps frame
+    count), suitable for the feature-list align() entry. The streams are
+    computed on `device` (ops/features.extract_features)."""
+    from .ops.features import extract_features
+    quantum = AUDIO_SAMPLE_RATE * PCM_BUCKET_SECONDS
+    true_samples = pcm.shape[1]
+    pad = (-true_samples) % quantum
+    if pad:
+        pcm = np.pad(pcm, ((0, 0), (0, pad)))
+    feats = extract_features(pcm, device=device)
+    return [f.cpu().numpy() for f in feats], true_samples // 210
 
 
 # Pairs per align_batch_from_pcm call in directory mode. Groups bound peak
@@ -57,13 +76,15 @@ class _BatchAligner:
     the consumer for segment replacement).
     """
 
-    def __init__(self, items, num_channels, keep_pcm, group, device):
+    def __init__(self, items, num_channels, keep_pcm, group, device,
+                 features='host'):
         # items: list of (pair_index, video_file, audio_file) in input order
         self._items = items
         self._nch = num_channels
         self._keep_pcm = keep_pcm
         self._group = group
         self._device = device
+        self._features = features
         self._q = queue_mod.Queue(maxsize=max(2, group))
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True)
@@ -94,7 +115,8 @@ class _BatchAligner:
                     pcm.append((v, a))
                     lens.append((v.shape[1], a.shape[1]))
                 results = align_batch_from_pcm(pcm, true_samples=lens,
-                                               device=self._device)
+                                               device=self._device,
+                                               features=self._features)
                 for (idx, _, _), res, vap, ln in zip(group, results, pcm,
                                                      lens):
                     payload = (vap + ln) if self._keep_pcm else None
@@ -127,16 +149,20 @@ class _BatchAligner:
 
 def combine(video, audio, stretch_audio=False, yes=False, prepend="ad_",
             no_pitch_correction=False, output_dir=DEFAULT_OUTPUT_DIR,
-            alignment_dir=DEFAULT_ALIGNMENT_DIR, device='cuda'):
+            alignment_dir=DEFAULT_ALIGNMENT_DIR, device='cuda',
+            features='host'):
     """Combine videos with matching audio description files.
 
     Same public behavior as the JAX package's combine() and the reference's
     documented module API (reference README.md:136-140); device is where
-    the matcher runs.
+    the matcher runs; features is where the features are extracted
+    ('host' or 'device', see alignment.api.align_from_pcm; the JAX package
+    reads DESCRIBEALIGN_FEATURES).
     """
     from . import __version__
-    from .alignment.api import (_pad_pcm_i16, _require_device,
-                                align_from_pcm, warn_low_confidence)
+    from .alignment.api import (_feature_path, _pad_pcm_i16,
+                                _require_device, align_from_pcm,
+                                warn_low_confidence)
     from .media import ffmpeg as ffmpeg_mod
     from .media.decode import parse_audio_int16
     from .media.mux import (encode_fit_as_ffmpeg_expr,
@@ -146,6 +172,7 @@ def combine(video, audio, stretch_audio=False, yes=False, prepend="ad_",
     from .stretch.segments import replace_aligned_segments
 
     device = _require_device(device)
+    _feature_path(features)
 
     video_files, has_audio_extensions = get_sorted_filenames(
         video, VIDEO_EXTENSIONS, AUDIO_EXTENSIONS)
@@ -217,7 +244,8 @@ def combine(video, audio, stretch_audio=False, yes=False, prepend="ad_",
     if _use_batch(len(align_needed)):
         batcher = _BatchAligner(align_needed, num_channels,
                                 keep_pcm=stretch_audio,
-                                group=BATCH_GROUP_SIZE, device=device)
+                                group=BATCH_GROUP_SIZE, device=device,
+                                features=features)
         batch_owned = {i for i, _, _ in align_needed}
 
     # decode-ahead for the sequential path: decode the next pair in a
@@ -305,7 +333,8 @@ def combine(video, audio, stretch_audio=False, yes=False, prepend="ad_",
                                              video_samples=video_samples,
                                              audio_samples=audio_samples,
                                              combine_prints=True,
-                                             device=device)
+                                             device=device,
+                                             features=features)
                     aligncache.save(alignment_dir, video_file,
                                     audio_desc_file, outputs, num_channels)
                 del video_i16, audio_i16

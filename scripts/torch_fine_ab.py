@@ -3,12 +3,14 @@
 on the bench pair's first full 256-block chunk, both tracks, on one card.
 
     python scripts/torch_fine_ab.py --baseline OTHER/fine_match.cu \
-        [--baseline ANOTHER.cu ...] [--ptxas]
+        [--baseline ANOTHER.cu ...] [--ptxas] [--one-width]
 
 Each baseline is any source with the same C entry point
 (fine_match_launch), e.g. an earlier commit's, written out with
 `git show REV:describealign_tpu_torch/csrc/fine_match.cu`, or a variant of
-the kernel. All are built with the port's nvcc flags. For each baseline
+the kernel (--one-width: the baselines take one Npad for both streams,
+as sources before the audio and video widths were split do). All are
+built with the port's nvcc flags. For each baseline
 the script checks that it and the kernel give the same candidate sets
 (keyed by block, frame and video frame) and both against the plain
 version, then times them with CUDA events in the order baseline, kernel,
@@ -53,14 +55,14 @@ def ptxas_report(path):
             if 'registers' in ln or 'spill' in ln or 'smem' in ln]
 
 
-def baseline_launcher(path, i):
+def baseline_launcher(path, i, two_widths):
     lib = _build.load_library(f'fine_match_baseline{i}',
                               [os.path.abspath(path)])
     lib.fine_match_launch.restype = ctypes.c_int
     lib.fine_match_launch.argtypes = (
         [ctypes.c_void_p] * 8
-        + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_float,
-           ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+        + [ctypes.c_longlong] * (3 if two_widths else 2)
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
            ctypes.c_void_p])
 
     def launch(ms_a, norms_a, a_mask, ms_v, norms_v, v_mask, v_starts,
@@ -72,9 +74,11 @@ def baseline_launcher(path, i):
         rc = lib.fine_match_launch(
             ms_a.data_ptr(), norms_a.data_ptr(), a_mask.data_ptr(),
             ms_v.data_ptr(), norms_v.data_ptr(), v_mask.data_ptr(),
-            v_starts.data_ptr(), a_starts.data_ptr(), ms_a.shape[1], c,
-            fine_kernel.LOG_CUT, fine_kernel.EXP_COEF, quals.data_ptr(),
-            offs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            v_starts.data_ptr(), a_starts.data_ptr(),
+            *((ms_a.shape[1], ms_v.shape[1]) if two_widths
+              else (ms_a.shape[1],)), c, fine_kernel.LOG_CUT,
+            fine_kernel.EXP_COEF, quals.data_ptr(), offs.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"baseline launch failed: CUDA error {rc}")
         return quals, offs
@@ -114,6 +118,8 @@ def main():
     ap.add_argument('--baseline', required=True, action='append')
     ap.add_argument('--reps', type=int, default=20)
     ap.add_argument('--ptxas', action='store_true')
+    ap.add_argument('--one-width', action='store_true',
+                    help='the baselines take one Npad for both streams')
     ap.add_argument('--all-chunks', action='store_true',
                     help='also hold the kernel and every baseline against '
                          'the plain version on every chunk of both tracks')
@@ -130,7 +136,8 @@ def main():
                 print(f"[ptxas {label}] {line}", flush=True)
 
     device = torch.device('cuda')
-    baselines = [baseline_launcher(b, i) for i, b in enumerate(args.baseline)]
+    baselines = [baseline_launcher(b, i, not args.one_width)
+                 for i, b in enumerate(args.baseline)]
     v, a = build_scale_pair(os.path.join(REPO, 'build', 'bench_pair_i16.npz'))
     npad = max(api._bucket_pad(v.shape[1] // 210),
                api._bucket_pad(a.shape[1] // 210))

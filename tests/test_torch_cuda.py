@@ -70,6 +70,9 @@ def test_fine_kernel_matches_plain_on_card(cuda_device):
         assert np.percentile(rel, 99) < 1e-3
         # the worst candidate too: qualities reach QUAL_MAX=50
         assert err.max() < 1e-2
+        # and relative: an error of the correlation counts in units of
+        # 1 - corr (chip_smoke.py's MAX_REL)
+        assert rel.max() < 2e-3
 
 
 def test_streamed_dp_matches_materialized_on_card(cuda_device):
@@ -143,3 +146,126 @@ def test_batch_matches_single_on_card(cuda_device):
             np.testing.assert_array_equal(got[i], want[i])
         assert got[2] == want[2] and got[4] == want[4]
         np.testing.assert_allclose(got[5], want[5], rtol=1e-3)
+
+
+def _feature_inputs(device):
+    """(mono, stereo) int16 PCM on the card: 3 s and 2.5 s plus a partial
+    frame, speech-like, from a seed."""
+    out = []
+    for seconds, channels, seed in ((3.0, 1, 5), (2.5, 2, 6)):
+        video, _, _ = build_pair(content_seconds=seconds, narration=(),
+                                 seed=seed, channels=channels)
+        pcm = np.clip(video, -32768, 32767).astype(np.int16)[:, :-37]
+        out.append(torch.from_numpy(np.ascontiguousarray(pcm)).to(device))
+    return out
+
+
+def test_feature_kernels_match_plain_on_card(cuda_device):
+    """K1 (pcm_frontend) and K2 (polyphase_blur, every stage of the
+    cascade) against their plain versions on the same CUDA tensors: FIR
+    outputs bit-equal, crossing counts exact, energy within rtol 1e-6 (the
+    kernel sums in the plain version's order, so it is equal too); int16
+    and f32 input; one launch counted per call."""
+    from describealign_tpu_torch.ops import features as tf
+    from describealign_tpu_torch.ops import features_kernel as fk
+    for pcm in _feature_inputs(cuda_device):
+        for x in (pcm, pcm.float()):
+            before = fk.pcm_frontend_cuda.launches
+            got = tf.pcm_frontend(x)
+            torch.cuda.synchronize()
+            assert fk.pcm_frontend_cuda.launches == before + 1
+            want = tf.pcm_frontend_plain(
+                x.half().float() if x.dtype == torch.int16 else x)
+            torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=0)
+            for g, w in zip(got[1:], want[1:]):
+                assert torch.equal(g, w)
+        energy, crossings, bottom1, band1 = got
+        bottom2 = tf.polyphase_blur(bottom1, 7, 3)
+        for args, kw in (((energy, 1, 13), dict(epilogue='energy')),
+                         ((crossings, 1, 13), {}),
+                         ((band1, 42, 15), dict(epilogue='band')),
+                         ((bottom1, 7, 3), {}),
+                         ((bottom1, 6, 15), dict(r=7, bottom=bottom2,
+                                                 epilogue='band')),
+                         ((bottom2, 1, 15), dict(r=6, epilogue='band'))):
+            before = fk.polyphase_blur_cuda.launches
+            got_k = tf.polyphase_blur(*args, **kw)
+            torch.cuda.synchronize()
+            assert fk.polyphase_blur_cuda.launches == before + 1
+            assert torch.equal(got_k, tf.polyphase_blur_plain(*args, **kw))
+
+
+def test_fine_kernel_unequal_widths_on_card(cuda_device):
+    """The fine kernel with the audio and the video stream at their own
+    widths (the device-feature path's buckets) against its plain version:
+    equal candidate sets on every block of both tracks, apart from
+    candidates on the quality gate's floor (within 1e-4 of it, at most one
+    per 20k: kernel and plain sum the correlations in other orders, as
+    chip_smoke.py allows)."""
+    from describealign_tpu_torch.alignment import matching
+    from describealign_tpu_torch.ops import features as tf
+    from describealign_tpu_torch.ops import fine_kernel as fk
+    from describealign_tpu_torch.alignment import api, preprocess
+    video, audio, _ = build_pair(content_seconds=40.0,
+                                 narration=((15.0, 8.0), (28.0, 6.0)),
+                                 lead_in=10.0, seed=11)
+    feats = []
+    for x in (audio, video):
+        pcm = torch.from_numpy(api._pad_pcm_i16(
+            np.clip(x, -32768, 32767).astype(np.int16))).to(cuda_device)
+        feats.append(tf.feature_stack(pcm, pcm.shape[1] // 210))
+    (ms_a, norms_a), (ms_v, norms_v) = (preprocess.preprocess_features(f)
+                                        for f in feats)
+    floor = 1e-4 * float(np.exp(np.float64(fk.EXP_COEF) * fk.LOG_CUT))
+    assert ms_a.shape[1] != ms_v.shape[1]
+    na, nv = audio.shape[1] // 210, video.shape[1] // 210
+    a_mask, v_mask, starts, _, _ = matching._coarse_tracks(
+        ms_a, norms_a, feats[0][0], na, ms_v, norms_v, feats[1][0], nv)
+    nb = starts.shape[1]
+    a_starts = torch.arange(nb, dtype=torch.int32,
+                            device=cuda_device) * matching.BLOCK
+    for t in range(starts.shape[0]):
+        args = (ms_a, norms_a, a_mask.float(), ms_v, norms_v, v_mask.float(),
+                starts[t].contiguous(), a_starts)
+        qk, ok = fk.fine_match(*args)
+        qp, op = fk.fine_match_plain(*args)
+        keys = []
+        for q, o in ((qk, ok), (qp, op)):
+            b, l, k = torch.nonzero(q > 0, as_tuple=True)
+            keys.append(dict(zip(zip(b.tolist(), l.tolist(),
+                                     (o[b, l, k] + starts[t][b]).tolist()),
+                                 q[b, l, k].tolist())))
+        only = set(keys[0]) ^ set(keys[1])
+        assert len(keys[1]) > 1000
+        assert len(only) <= len(keys[1]) // 20000 + 1
+        assert all(max(keys[0].get(k, 0.0), keys[1].get(k, 0.0))
+                   <= floor * (1 + 1e-4) for k in only), sorted(only)
+        # the common candidates' qualities as in
+        # test_fine_kernel_matches_plain_on_card
+        common = [k for k in keys[1] if k in keys[0]]
+        err = np.array([abs(keys[0][k] - keys[1][k]) for k in common])
+        rel = err / np.array([keys[1][k] for k in common])
+        assert np.percentile(rel, 99) < 1e-3
+        assert err.max() < 1e-2 and rel.max() < 2e-3
+
+
+def test_device_features_batch_matches_single_on_card(cuda_device):
+    """align_batch_from_pcm(features='device') on the card against
+    align_from_pcm(features='device') pair by pair (equal tuples), and the
+    card against the CPU within 10 ms at every node."""
+    from describealign_tpu_torch.alignment import api
+    pairs = []
+    for seed, lead in ((3, 6.0), (11, 20.0)):
+        video, audio, _ = build_pair(content_seconds=40.0, narration=(),
+                                     lead_in=lead, seed=seed)
+        pairs.append((np.clip(video, -32768, 32767).astype(np.int16),
+                      np.clip(audio, -32768, 32767).astype(np.int16)))
+    batch = api.align_batch_from_pcm(pairs, features='device')
+    for got, (v, a) in zip(batch, pairs):
+        want = api.align_from_pcm(v, a, features='device')
+        for i in (0, 1, 3):
+            np.testing.assert_array_equal(got[i], want[i])
+        assert got[2] == want[2] and got[4] == want[4] and got[5] == want[5]
+        cpu = api.align_from_pcm(v, a, features='device', device='cpu')
+        assert np.max(np.abs(np.interp(cpu[0], got[0], got[1])
+                             - cpu[1])) <= 0.010

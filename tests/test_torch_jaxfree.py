@@ -1,8 +1,9 @@
 """The port runs where jax is absent: the card machine has no jax,
 sortedcontainers, matplotlib or platformdirs, and the port imports nothing
 of the JAX package. A subprocess blocks those modules and the JAX package
-and runs the port's align_from_pcm, then combine() and the CLI's
---version, on a small pair on the CPU.
+and runs the port's align_from_pcm (both feature paths), features_for,
+the batch, then combine() and the CLI's --version, on a small pair on the
+CPU.
 chip_smoke.py imports only the port, torch and numpy."""
 import ast
 import os
@@ -31,11 +32,23 @@ out = align_from_pcm(v, a, device="cpu")
 assert len(out) == 6, len(out)
 assert abs(float(out[0][0] - out[1][0]) - 2.0) < 0.05, out[0][0] - out[1][0]
 
+# the device-feature path (the feature kernels' plain versions on the CPU)
+from describealign_tpu_torch import features_for
+from describealign_tpu_torch.ops import features_kernel
+dev = align_from_pcm(v, a, device="cpu", features="device")
+assert len(dev) == 6 and abs(float(dev[0][0] - dev[1][0]) - 2.0) < 0.05
+feats, n_frames = features_for(a, device="cpu")
+assert len(feats) == 5 and n_frames == a.shape[1] // 210
+assert (features_kernel.pcm_frontend_cuda.launches
+        == features_kernel.polyphase_blur_cuda.launches == 0)
+
 # the batch path and the coarse-DP wrappers (plain versions on the CPU)
 from describealign_tpu_torch import align_batch_from_pcm
 from describealign_tpu_torch.bench_pair import BATCH_SPECS, build_batch_pairs
 from describealign_tpu_torch.ops import coarse_dp
 both = align_batch_from_pcm([(v, a), (v, a)], device="cpu")
+assert all(np.array_equal(r[0], dev[0]) for r in align_batch_from_pcm(
+    [(v, a), (v, a)], device="cpu", features="device"))
 assert len(both) == 2 and all(len(r) == 6 for r in both)
 for r in both:
     assert np.array_equal(r[0], out[0]) and np.array_equal(r[1], out[1])
