@@ -974,18 +974,38 @@ def conv1d_blur(ds, blur, device):
     return run
 
 
+def device_ms(fn, name, reps=REPS):
+    """Mean device milliseconds per call of fn in kernels whose name holds
+    `name` (torch.profiler), after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "self_device_time_total", 0) or 0
+               for e in prof.key_averages() if name in e.key) / reps / 1e3
+
+
 def phase_feature_kernels(streams, smi):
     """Phase 7a: K1 and K2 against their plain versions on the bench pair's
-    two padded int16 streams, the five streams against the host C++
-    extractor, and CUDA-event times. Returns {kernel: record} with times,
-    bounds and errors summed or maxed over the pair's two streams."""
+    two padded int16 streams (K2 per stage and as the cascade, one launch
+    per stream), the five streams against the host C++ extractor, and the
+    times. Returns {kernel: record} with times, bounds and errors summed or
+    maxed over the pair's two streams: `ms` the kernel's device time
+    (torch.profiler), `wrapper_ms` the wrapper's calls between CUDA events
+    (host issue included); K2's time is the cascade's."""
     from describealign_tpu_torch.ops import features as tf
     from describealign_tpu_torch.ops import features_kernel as fk
     from describealign_tpu_torch.ops.host_features import (
         extract_features_host)
-    rec = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0)
+    rec = {k: dict(ms=0.0, wrapper_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                   err=0.0, bytes=0)
            for k in ("pcm_frontend", "polyphase_blur")}
-    rec["polyphase_blur"].update(library_ms=0.0, library_rel=0.0)
+    rec["polyphase_blur"].update(library_ms=0.0, library_rel=0.0,
+                                 stages_ms=0.0)
     up_ms, up_bytes, lines = 0.0, 0, []
     for label, pcm_np, true_samples in streams:
         pinned = torch.from_numpy(pcm_np).pin_memory()
@@ -1004,13 +1024,29 @@ def phase_feature_kernels(streams, smi):
                                  f"exact {exact})")
         work = fk.feature_work(c, s)
         k1 = rec["pcm_frontend"]
-        k1["ms"] += cuda_ms(lambda: tf.pcm_frontend(pcm))
+        k1["wrapper_ms"] += cuda_ms(lambda: tf.pcm_frontend(pcm))
+        k1["ms"] += device_ms(lambda: tf.pcm_frontend(pcm), "pcm_frontend")
         k1["plain_ms"] += cuda_ms(
             lambda: tf.pcm_frontend_plain(pcm.half().float()), 1)
         k1["bound_ms"] += work["pcm_frontend"] / HBM_BYTES_S * 1e3
+        k1["bytes"] += work["pcm_frontend"]
         k1["err"] = max(k1["err"], float((got[0] - want[0]).abs().max()))
         k2 = rec["polyphase_blur"]
         k2["bound_ms"] += work["polyphase_blur"] / HBM_BYTES_S * 1e3
+        k2["bytes"] += work["polyphase_blur"]
+        # the cascade, bit-equal in one launch
+        plain = tf.polyphase_cascade_plain(*got)
+        before = fk.polyphase_blur_cuda.launches
+        out = tf.polyphase_cascade(*got)
+        if not (all(torch.equal(g, w) for g, w in zip(out, plain))
+                and fk.polyphase_blur_cuda.launches == before + 1):
+            raise AssertionError(f"{label}: the cascade differs from its "
+                                 f"plain version or took other than one "
+                                 f"launch")
+        k2["wrapper_ms"] += cuda_ms(lambda: tf.polyphase_cascade(*got))
+        k2["ms"] += device_ms(lambda: tf.polyphase_cascade(*got),
+                              "polyphase_group")
+        k2["plain_ms"] += cuda_ms(lambda: tf.polyphase_cascade_plain(*got), 1)
         stage_ms = []
         for name, args, kw in feature_stages(pcm):
             out = tf.polyphase_blur(*args, **kw)
@@ -1019,9 +1055,7 @@ def phase_feature_kernels(streams, smi):
                 raise AssertionError(f"{label}: polyphase_blur ({name}) "
                                      f"differs from its plain version")
             ms = cuda_ms(lambda: tf.polyphase_blur(*args, **kw))
-            k2["ms"] += ms
-            k2["plain_ms"] += cuda_ms(
-                lambda: tf.polyphase_blur_plain(*args, **kw), 1)
+            k2["stages_ms"] += ms
             # the library reference: one strided conv1d, in f32
             lib = conv1d_blur(args[1], args[2], pcm.device)
             tf32 = torch.backends.cudnn.allow_tf32
@@ -1062,7 +1096,9 @@ def phase_feature_kernels(streams, smi):
                                      f"{EDGE_RTOL} / atol {EDGE_ATOL}")
         lines.append(f"{label} ({c} x {s} int16): K1 {exact[1:].count(True)}/3 "
                      f"outputs bit-equal, energy {'bit-equal' if exact[0] else f'max rel {e_rel:.3g}'}; "
-                     f"K2 6/6 stages bit-equal ({', '.join(stage_ms)} ms); "
+                     f"K2 6/6 stages bit-equal one launch each "
+                     f"({', '.join(stage_ms)} ms), the cascade bit-equal in "
+                     f"one launch; "
                      f"vs host C++ extractor, worst |d| / (|h| + "
                      f"{STREAM_ATOL / STREAM_RTOL:g}) per stream "
                      f"{[f'{w:.2g}' for w in worst]} over all but the last "
@@ -1073,16 +1109,26 @@ def phase_feature_kernels(streams, smi):
     for ln in lines:
         print(f"[7a feature kernels vs plain] {ln} ({smi})", flush=True)
     k1, k2 = rec["pcm_frontend"], rec["polyphase_blur"]
-    print(f"[7a feature kernels] per pair (both streams): pcm_frontend "
-          f"{k1['ms']:.4f} ms (plain {k1['plain_ms']:.2f} ms, bytes bound "
-          f"{k1['bound_ms']:.4f} ms, {k1['bound_ms'] / k1['ms']:.1%}), "
-          f"polyphase_blur 12 calls {k2['ms']:.4f} ms (plain "
-          f"{k2['plain_ms']:.2f} ms, bytes bound {k2['bound_ms']:.4f} ms, "
-          f"{k2['bound_ms'] / k2['ms']:.1%}; the same stages as strided "
-          f"conv1d, TF32 off, {k2['library_ms']:.4f} ms, worst "
-          f"{k2['library_rel']:.2g} of a stage's largest output off the "
-          f"kernel); upload of the {up_bytes} bytes "
-          f"of int16 PCM from pinned memory {up_ms:.3f} ms "
+    if not (k1["ms"] > 0 and k2["ms"] > 0):
+        raise AssertionError(f"7a: the profiler saw no device time of the "
+                             f"feature kernels ({k1['ms']}, {k2['ms']})")
+    slots, per_sm = fk.frontend_config(1)
+    print(f"[7a feature kernels] per pair (both streams), device time: "
+          f"pcm_frontend {k1['ms']:.4f} ms "
+          f"({k1['bytes'] / k1['ms'] / 1e6:.0f} GB/s; {slots} ring slots, "
+          f"{per_sm} CTAs per SM; the wrapper between events "
+          f"{k1['wrapper_ms']:.4f} ms; plain {k1['plain_ms']:.2f} ms, bytes "
+          f"bound {k1['bound_ms']:.4f} ms, {k1['bound_ms'] / k1['ms']:.1%}) "
+          f"| polyphase_blur as the cascade, one launch per stream, "
+          f"{k2['ms']:.4f} ms ({k2['bytes'] / k2['ms'] / 1e6:.0f} GB/s of "
+          f"the function's {k2['bytes']} bytes; the wrapper between events "
+          f"{k2['wrapper_ms']:.4f} ms; plain {k2['plain_ms']:.2f} ms, bytes "
+          f"bound {k2['bound_ms']:.4f} ms, {k2['bound_ms'] / k2['ms']:.1%}); "
+          f"the six stages one launch each, between events, "
+          f"{k2['stages_ms']:.4f} ms, as strided conv1d, TF32 off, "
+          f"{k2['library_ms']:.4f} ms, worst {k2['library_rel']:.2g} of a "
+          f"stage's largest output off the kernel | upload of the "
+          f"{up_bytes} bytes of int16 PCM from pinned memory {up_ms:.3f} ms "
           f"({up_bytes / up_ms / 1e6:.1f} GB/s) ({smi})", flush=True)
     rec["upload_ms"] = up_ms
     return rec
@@ -1168,12 +1214,13 @@ def phase_device_features(v, a, host_split, batch, smi):
         times.append(time.perf_counter() - t0)
     launches = kernel_counts()
     peak = torch.cuda.max_memory_allocated()
-    # per run: K1 once and K2 six times per stream, the single-shot fine
+    # per run: K1 once and the cascade once per stream, the fine
     # pass once per track (over all blocks), the DP once per track
     want = {"fine_match": 3 * matching.N_TRACKS,
             "dp_forward": 3 * matching.N_TRACKS,
             "dp_backtrace": 3 * matching.N_TRACKS,
-            "pcm_frontend": 3 * 2, "polyphase_blur": 3 * 2 * 6}
+            "pcm_frontend": 3 * 2,
+            "polyphase_blur": 3 * 2}
     split = {}
     run(split)
     x, y, sim, _, slope, margin = result
@@ -1259,7 +1306,8 @@ def phase_device_features(v, a, host_split, batch, smi):
                   "fine_match": 8 * matching.N_TRACKS,
                   "dp_forward": 8 * matching.N_TRACKS,
                   "dp_backtrace": 8 * matching.N_TRACKS,
-                  "pcm_frontend": 8 * 2, "polyphase_blur": 8 * 2 * 6},
+                  "pcm_frontend": 8 * 2,
+                  "polyphase_blur": 8 * 2},
               "quiet": quiet == "",
               "no retry": retries == 0}
     print(f"[7c device features batch] align_batch_from_pcm(features="
@@ -1460,6 +1508,9 @@ def main():
                 "bound_ms": rec["bound_ms"],
                 "bound_by": "bytes",
                 "bound_share": rec["bound_ms"] / rec["ms"],
+                "gb_per_s": rec["bytes"] / rec["ms"] / 1e6,
+                "wrapper_ms": rec["wrapper_ms"],
+                **{k: rec[k] for k in ("stages_ms",) if k in rec},
                 "pcm_upload_ms": feat["upload_ms"],
                 "library_ms": rec.get("library_ms")}
 

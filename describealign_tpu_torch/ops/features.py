@@ -17,7 +17,9 @@ The work is split the way the two hand-written CUDA kernels split it
   stage 1 (`bottom` = _downsample_blur(arr, 5, 3) and its residual band
   energy);
 - `polyphase_blur` (K2): _downsample_blur(y, ds, blur) with an optional
-  squared-residual or square prologue building y, and the log epilogues.
+  squared-residual or square prologue building y, and the log epilogues;
+  `polyphase_cascade`, a stream's six such stages off K1's outputs, which
+  the kernel runs in one grouped launch.
 
 Each dispatches on the tensor's device: CPU tensors run the plain
 versions below, CUDA tensors launch the kernel or raise. There is no
@@ -166,22 +168,33 @@ def polyphase_blur(x, ds, blur, r=0, bottom=None, epilogue=None):
     return polyphase_blur_cuda(x, ds, blur, r, bottom, epilogue)
 
 
-def _bands(bottom1, band1):
-    """The three band streams off K1's stage 1: three polyphase_blur calls
-    and the blur that makes stage 2's bottom."""
-    bottom2 = polyphase_blur(bottom1, CASCADE[1], 3)
-    return [polyphase_blur(band1, FRAME // 5, 15, epilogue='band'),
-            polyphase_blur(bottom1, FRAME // 35, 15, r=CASCADE[1],
-                           bottom=bottom2, epilogue='band'),
-            polyphase_blur(bottom2, 1, 15, r=CASCADE[2], epilogue='band')]
+def polyphase_cascade_plain(energy, crossings, bottom1, band1):
+    """The cascade's plain version: the five streams (smoothed energy,
+    smoothed crossings, bands 1-3) off K1's outputs, six
+    polyphase_blur_plain calls, bottom 2 the blur that band 2 and band 3
+    read."""
+    bottom2 = polyphase_blur_plain(bottom1, CASCADE[1], 3)
+    return (polyphase_blur_plain(energy, 1, SMOOTH, epilogue='energy'),
+            polyphase_blur_plain(crossings, 1, SMOOTH),
+            polyphase_blur_plain(band1, FRAME // 5, 15, epilogue='band'),
+            polyphase_blur_plain(bottom1, FRAME // 35, 15, r=CASCADE[1],
+                                 bottom=bottom2, epilogue='band'),
+            polyphase_blur_plain(bottom2, 1, 15, r=CASCADE[2],
+                                 epilogue='band'))
+
+
+def polyphase_cascade(energy, crossings, bottom1, band1):
+    """The cascade on the inputs' device: the plain version on the CPU, one
+    grouped K2 launch on CUDA."""
+    if energy.device.type == 'cpu':
+        return polyphase_cascade_plain(energy, crossings, bottom1, band1)
+    from .features_kernel import polyphase_cascade_cuda
+    return polyphase_cascade_cuda(energy, crossings, bottom1, band1)
 
 
 def _streams(pcm):
-    """The 5 streams off one pcm_frontend and six polyphase_blur calls."""
-    energy, crossings, bottom1, band1 = pcm_frontend(pcm)
-    return (polyphase_blur(energy, 1, SMOOTH, epilogue='energy'),
-            polyphase_blur(crossings, 1, SMOOTH),
-            *_bands(bottom1, band1))
+    """The 5 streams off one pcm_frontend and one polyphase_cascade."""
+    return polyphase_cascade(*pcm_frontend(pcm))
 
 
 def extract_features(pcm, device='cuda'):

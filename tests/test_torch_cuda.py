@@ -162,10 +162,13 @@ def _feature_inputs(device):
 
 def test_feature_kernels_match_plain_on_card(cuda_device):
     """K1 (pcm_frontend) and K2 (polyphase_blur, every stage of the
-    cascade) against their plain versions on the same CUDA tensors: FIR
+    cascade, and polyphase_cascade, the stream's six stages in one grouped
+    launch) against their plain versions on the same CUDA tensors: FIR
     outputs bit-equal, crossing counts exact, energy within rtol 1e-6 (the
     kernel sums in the plain version's order, so it is equal too); int16
-    and f32 input; one launch counted per call."""
+    and f32 input, mono on 16 bytes and a ragged stereo row off them (the
+    scalar staging loop); one launch counted per call, the cascade's
+    included."""
     from describealign_tpu_torch.ops import features as tf
     from describealign_tpu_torch.ops import features_kernel as fk
     for pcm in _feature_inputs(cuda_device):
@@ -193,6 +196,13 @@ def test_feature_kernels_match_plain_on_card(cuda_device):
             torch.cuda.synchronize()
             assert fk.polyphase_blur_cuda.launches == before + 1
             assert torch.equal(got_k, tf.polyphase_blur_plain(*args, **kw))
+        want = tf.polyphase_cascade_plain(*got)
+        before = fk.polyphase_blur_cuda.launches
+        streams = tf.polyphase_cascade(*got)
+        torch.cuda.synchronize()
+        assert fk.polyphase_blur_cuda.launches == before + 1
+        for g, w in zip(streams, want):
+            assert torch.equal(g, w)
 
 
 def test_fine_kernel_unequal_widths_on_card(cuda_device):

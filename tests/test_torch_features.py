@@ -49,9 +49,11 @@ STREAM_TOL = [(2e-5, 2e-7), (2e-5, 2e-5)] + [(5e-5, 5e-6)] * 3
 TOL_S = 0.010
 GATE_REL = 1e-4
 
-# csrc/features_dev.cu's decomposition
-FR, FRAME, HALO, ZC_SPLIT, K2_OUT = 16, 210, 16, 16, 128
+# csrc/features_dev.cu's decomposition: K1 windows, ring, stage-1 threads
+FR, FRAME, HALO = 16, 210, 8
 RUN = FR * FRAME
+STAGE = RUN + 2 * HALO
+N1, R1 = RUN // 5, 4
 
 PAIRS = {
     # both streams in one 64-s bucket
@@ -143,146 +145,339 @@ def test_extract_features_and_device_argument():
 # Tiling twins of the CUDA kernels, bit-equal to the plain version
 # ---------------------------------------------------------------------------
 
-def _staged(x, starts, width):
-    """(blocks, width): x[start + p], zero outside [0, len(x))."""
-    idx = starts[:, None] + torch.arange(width)[None, :]
-    ok = (idx >= 0) & (idx < x.shape[0])
-    return torch.where(ok, x[idx.clamp(0, x.shape[0] - 1)],
-                       torch.zeros(()))
+def _chunk_read(row, q, elem, lim):
+    """row[q] as a 16-byte cp.async chunk stages it: the chunk of 16 // elem
+    values that starts at q rounded down to a chunk copies its bytes that
+    lie in [0, lim) and zero-fills the rest (the src-size operand)."""
+    e = 16 // elem
+    chunk = torch.div(q, e, rounding_mode='floor') * e
+    nbytes = torch.where((chunk < 0) | (chunk >= lim), 0,
+                         ((lim - chunk) * elem).clamp(max=16))
+    ok = (q - chunk) * elem < nbytes
+    return torch.where(ok, row[q.clamp(0, row.shape[0] - 1)],
+                       torch.zeros((), dtype=row.dtype))
 
 
-def _polyphase_twin(y, taps, ds, j):
-    """polyphase_at: phase i's t_i taps around its centre (t_i - 1) // 2,
-    products and adds in the kernel's order; y(q) reads index q."""
-    length = len(taps)
-    out = None
-    for i in range(ds):
-        t = (length - i + ds - 1) // ds
-        c = (t - 1) // 2
-        part = float(taps[i]) * y(ds * (j + c) + i)
-        for m in range(1, t):
-            part = part + float(taps[i + ds * m]) * y(ds * (j + c - m) + i)
-        out = part if i == 0 else out + part
+def _scalar_read(row, q, lim):
+    """row[q], zero outside [0, lim): the scalar staging loop."""
+    return torch.where((q >= 0) & (q < lim), row[q.clamp(0, row.shape[0] - 1)],
+                       torch.zeros((), dtype=row.dtype))
+
+
+def k1_schedule(n_windows, grid, slots):
+    """K1's ring walk: CTA b stages windows b, b + grid, ... slots - 1
+    ahead, each into the slot the previous window's end barrier released,
+    and computes window w from slot (its iteration) % slots; asserts the
+    slot holds w. Returns {window: (cta, slot)}."""
+    seen = {}
+    for b in range(min(grid, n_windows)):
+        ring, w_next = [None] * slots, b
+        for u in range(slots - 1):
+            if w_next < n_windows:
+                ring[u] = w_next
+            w_next += grid
+        slot, w = 0, b
+        while w < n_windows:
+            fill = slots - 1 if slot == 0 else slot - 1
+            if w_next < n_windows:
+                ring[fill] = w_next
+            w_next += grid
+            assert ring[slot] == w, (b, w, slot, ring)
+            seen[w] = (b, slot)
+            slot = 0 if slot + 1 == slots else slot + 1
+            w += grid
+    assert sorted(seen) == list(range(n_windows))
+    return seen
+
+
+def frontend_twin(pcm, grid=3, slots=4):
+    """K1 as the kernel computes it, from int16 (or f32) PCM: windows of FR
+    frames walked through a ring of `slots` by `grid` persistent CTAs,
+    every channel's row staged with an 8-sample halo in 16-byte chunks
+    (rows on 16 bytes) or by the scalar loop, kept in the input type and
+    converted at use; lane k of warp 0 sums block k's squares channel by
+    channel and counts its sign transitions, lanes 2f, 2f + 1 make frame
+    f's count; stage-1 thread t computes outputs 4t..4t+3 of its window
+    from arr at staged positions 20t + 3 .. 20t + 32, zero from the trim
+    on, and stores those below n_bottom."""
+    c, s = pcm.shape
+    elem = pcm.element_size()
+    n_windows = -(-s // RUN)
+    k1_schedule(n_windows, grid, slots)
+    vec = c == 1 or (s * elem) % 16 == 0
+    q = (torch.arange(n_windows) * RUN - HALO)[:, None] + torch.arange(STAGE)
+    xs = torch.stack([_chunk_read(pcm[ch], q, elem, s) if vec
+                      else _scalar_read(pcm[ch], q, s) for ch in range(c)], 1)
+    v = xs.half().float() if pcm.dtype == torch.int16 else xs
+
+    lanes = HALO + 105 * torch.arange(2 * FR)
+    e = torch.zeros(n_windows, 2 * FR)
+    zc = torch.zeros(n_windows, 2 * FR, dtype=torch.int64)
+    for ch in range(c):
+        sp = torch.signbit(v[:, ch, lanes - 1])
+        for i in range(105):
+            x = v[:, ch, lanes + i]
+            e = e + x * x
+            sv = torch.signbit(x)
+            zc += sv != sp
+            sp = sv
+    energy = (e / (105 * c)).reshape(-1)[:s // 105]
+    pair = zc[:, 0::2] + zc[:, 1::2]
+    crossings = (pair * (2 if c == 1 else 1)).reshape(-1)[:s // FRAME]
+
+    trim = s // FRAME * FRAME
+    lim = (trim - q[:, :1]).clamp(0, STAGE)
+    arr = v[:, 0]
+    if c > 1:
+        for ch in range(1, c):
+            arr = arr + v[:, ch]
+        arr = (arr / c).half().float()
+    arr = torch.where(torch.arange(STAGE)[None, :] < lim, arr,
+                      torch.zeros(()))
+    t = torch.arange(N1 // R1)[:, None]
+    a = arr[:, 20 * t + 3 + torch.arange(5 * (R1 + 2))[None, :]]
+    taps = [float(x) for x in hann_taps(17)]
+    bottom, band = [], []
+    for r in range(R1):
+        part = [taps[i] * a[..., 5 * r + 10 + i] for i in range(5)]
+        part = [part[i] + taps[i + 5] * a[..., 5 * r + 5 + i]
+                for i in range(5)]
+        part = [part[i] + taps[i + 10] * a[..., 5 * r + i] for i in range(5)]
+        b = part[0]
+        for i in range(1, 5):
+            b = b + part[i]
+        sq = None
+        for i in range(5):
+            d = a[..., 5 * r + 5 + i] - b
+            sq = d * d if sq is None else sq + d * d
+        bottom.append(b)
+        band.append(sq)
+    n1 = trim // 5
+    return (energy, crossings.float(),
+            torch.stack(bottom, -1).reshape(-1)[:n1],
+            torch.stack(band, -1).reshape(-1)[:n1])
+
+
+def _stage_twin(st, x, bot, blocks):
+    """One K2 stage as its CTAs `blocks` (stage-local) compute it: each
+    stages y's span and halo (16-byte chunks, zero outside [0, n)) or x's
+    and bottom's and applies the prologue; phase item (g, i) takes phase
+    i of outputs 9g .. 9g + 8 from a register window, blur-tap chains in
+    tap order; one thread per output adds the phase partials in phase
+    order and applies the epilogue. Returns (blocks' first outputs, their
+    outputs)."""
+    ds, blur, rr, per = st['ds'], st['blur'], st['r'], st['per_block']
+    stride = 2 if st['epilogue'] == 1 else 1
+    hb = blur - 1 - (blur - 1) // 2
+    n = st['n']
+    o0 = blocks * per
+    span_y = ds * (stride * (per - 1) + blur)
+    q = (ds * (stride * o0 - hb))[:, None] + torch.arange(span_y)[None, :]
+    if st['prologue'] == 0:
+        s_y = _chunk_read(x, q, 4, n)
+    else:
+        xq = rr * q[:, :1] + torch.arange(rr * span_y)[None, :]
+        s_x = _chunk_read(x, xq, 4, rr * n)
+        b = _chunk_read(bot, q, 4, n) if st['prologue'] == 1 else 0.
+        v = None
+        for i in range(rr):
+            d = s_x[:, i::rr] - b
+            v = d * d if v is None else v + d * d
+        s_y = torch.where((q >= 0) & (q < n), v, torch.zeros(()))
+    out = _fir_twin(s_y, ds, blur, stride, per)
+    if st['epilogue'] == 2:
+        out = out / 210.
+    if st['epilogue']:
+        out = torch.log10(1. + out) / 2.
+    return o0, out
+
+
+def _fir_twin(s_y, ds, blur, stride, per):
+    """The phase items and the phase sum of one block row of staged y:
+    (blocks, per) sums before the epilogue."""
+    w = stride * (tfk.R2 - 1) + blur
+    g = torch.arange(per // tfk.R2)[:, None, None]
+    i = torch.arange(ds)[None, :, None]
+    win = s_y[:, i + ds * (stride * tfk.R2 * g + torch.arange(w))]
+    taps = torch.from_numpy(hann_taps(ds * blur + 2))
+    tp = taps[torch.arange(ds)[:, None] + ds * torch.arange(blur)[None, :]]
+    parts = []
+    for r in range(tfk.R2):
+        part = tp[:, 0] * win[..., stride * r + blur - 1]
+        for m in range(1, blur):
+            part = part + tp[:, m] * win[..., stride * r + blur - 1 - m]
+        parts.append(part)
+    p = torch.stack(parts, 2).reshape(s_y.shape[0], per, ds)
+    out = p[..., 0]
+    for k in range(1, ds):
+        out = out + p[..., k]
     return out
 
 
-def frontend_twin(pcm):
-    """K1 as the kernel computes it: blocks of FR frames staged with a
-    HALO on each side, one channel at a time; energy per 105-block thread,
-    crossings in ZC_SPLIT strided partial counts per frame, the channel
-    mean to the f16 grid, stage 1 read from the staged arr."""
-    c, s = pcm.shape
-    n_blocks = -(-s // RUN)
-    base = torch.arange(n_blocks) * RUN - HALO
-    width = RUN + 2 * HALO
-    e_acc = torch.zeros(n_blocks, 2 * FR)
-    zc = torch.zeros(n_blocks, FR, ZC_SPLIT, dtype=torch.int64)
-    frames = HALO + FRAME * torch.arange(FR)
-    s_arr = None
-    for ch in range(c):
-        s_x = _staged(pcm[ch], base, width)
-        s_arr = s_x if ch == 0 else s_arr + s_x
-        blocks = s_x[:, HALO:HALO + RUN].reshape(n_blocks, 2 * FR, 105)
-        for i in range(105):
-            e_acc = e_acc + blocks[:, :, i] * blocks[:, :, i]
-        sign = torch.signbit(s_x)
-        for zr in range(ZC_SPLIT):
-            for i in range(zr, FRAME, ZC_SPLIT):
-                zc[:, :, zr] += sign[:, frames + i] != sign[:, frames + i - 1]
-    energy = (e_acc / (105 * c)).reshape(-1)[:s // 105]
-    crossings = zc.sum(2).reshape(-1)[:s // FRAME] * (2 if c == 1 else 1)
+def _band_epilogue(v):
+    return torch.log10(1. + v / 210.) / 2.
 
-    trim = s // FRAME * FRAME
-    if c > 1:
-        s_arr = (s_arr / c).half().float()
-    s_abs = base[:, None] + torch.arange(width)[None, :]
-    s_arr = torch.where((s_abs >= 0) & (s_abs < trim), s_arr,
-                        torch.zeros(()))
 
-    def arr(q):
-        return s_arr.gather(1, q - base[:, None])
-    j = (base[:, None] + HALO) // 5 + torch.arange(RUN // 5)[None, :]
-    bottom = _polyphase_twin(arr, hann_taps(17), 5, j)
-    band = None
-    for i in range(5):
-        d = arr(5 * j + i) - bottom
-        band = d * d if band is None else band + d * d
-    n1 = trim // 5
-    return (energy, crossings.float(), bottom.reshape(-1)[:n1],
-            band.reshape(-1)[:n1])
+def _fused_twin(st, bottom1, blocks):
+    """Prologue 3 as its CTAs compute it: bottom 1 staged over 7 q - 7 ..
+    7 q + 13 for the bottom-2 values q = 6 o0 - 42 .. 6 (o0 + per) + 41
+    the block's band-2 and band-3 outputs read; bottom 2 recomputed there
+    (7 phases of 3 taps), y2 (residual squares) and y3 (squares of 6) from
+    it, then both FIRs. Returns (first outputs, band 2, band 3)."""
+    per = st['per_block']
+    o0 = blocks * per
+    span2 = 6 * (per - 1 + 15)
+    q2 = (6 * o0 - 42)[:, None] + torch.arange(span2)[None, :]
+    n2 = st['n_src'] // 7
+    b1 = _chunk_read(bottom1, 7 * q2[:, :1] - 7
+                     + torch.arange(7 * span2 + 14)[None, :], 4, st['n_src'])
+    taps = [float(t) for t in hann_taps(23)]
+    b2 = None
+    for i in range(7):
+        part = taps[i] * b1[:, 14 + i::7][:, :span2]
+        part = part + taps[i + 7] * b1[:, 7 + i::7][:, :span2]
+        part = part + taps[i + 14] * b1[:, i::7][:, :span2]
+        b2 = part if b2 is None else b2 + part
+    b2 = torch.where((q2 >= 0) & (q2 < n2), b2, torch.zeros(()))
+    y2 = None
+    for i in range(7):
+        d = b1[:, 7 + i::7][:, :span2] - b2
+        y2 = d * d if y2 is None else y2 + d * d
+    y2 = torch.where((q2 >= 0) & (q2 < st['n']), y2, torch.zeros(()))
+    q3 = (o0 - 7)[:, None] + torch.arange(per + 14)[None, :]
+    y3 = None
+    for i in range(6):
+        d = b2[:, i::6][:, :per + 14]
+        y3 = d * d if y3 is None else y3 + d * d
+    y3 = torch.where((q3 >= 0) & (q3 < n2 // 6), y3, torch.zeros(()))
+    return (o0, _band_epilogue(_fir_twin(y2, 6, 15, 1, per)),
+            _band_epilogue(_fir_twin(y3, 1, 15, 1, per)))
+
+
+def group_twin(table, inputs):
+    """One grouped K2 launch: every CTA of the grid finds its stage as the
+    kernel does (the last stage whose first_block it has reached) and
+    computes its outputs; each output is written by exactly one CTA."""
+    grid = sum(st['n_blocks'] for st in table)
+    blk = torch.arange(grid)
+    stage = torch.zeros(grid, dtype=torch.int64)
+    for k in range(1, len(table)):
+        stage += blk >= table[k]['first_block']
+    outs = []
+    for k, (st, (x, bot)) in enumerate(zip(table, inputs)):
+        local = blk[stage == k] - st['first_block']
+        assert torch.equal(local, torch.arange(st['n_blocks']))
+        if st['prologue'] == 3:
+            o0, *vals = _fused_twin(st, x, local)
+        else:
+            o0, *vals = _stage_twin(st, x, bot, local)
+        o = o0[:, None] + torch.arange(st['per_block'])[None, :]
+        keep = o < st['n_out']
+        assert keep.sum() == st['n_out']
+        for v in vals:
+            out = torch.full((st['n_out'],), float('nan'))
+            out[o[keep]] = v[keep]
+            outs.append(out)
+    return outs
 
 
 def blur_twin(x, ds, blur, r=0, bottom=None, epilogue=None):
-    """K2 as the kernel computes it: blocks of K2_OUT outputs, each stages
-    its input span (with the prologue applied, zero outside [0, n)) plus
-    the phase-0 halo, then polyphase_at per output and the epilogue."""
-    length = ds * blur
-    taps = hann_taps(length + 2)
-    n_y = x.shape[0] // r if r else x.shape[0]
-    n = n_y - n_y % ds
-    stride = 2 if epilogue == 'energy' else 1
-    n_out = -(-n // 2) if epilogue == 'energy' else n // ds
-    t0 = -(-length // ds)
-    hb, ha = t0 // 2, (t0 - 1) // 2
-    o0 = torch.arange(-(-n_out // K2_OUT)) * K2_OUT
-    span = (K2_OUT - 1) * stride + 1
-    q0 = ds * (o0 * stride - hb)
-    q = q0[:, None] + torch.arange(ds * (span + hb + ha))[None, :]
-    ok = (q >= 0) & (q < n)
-    qc = q.clamp(0, n - 1)
-    if r == 0:
-        v = x[qc]
-    else:
-        b = bottom[qc] if bottom is not None else torch.zeros(())
-        v = None
-        for i in range(r):
-            d = x[r * qc + i] - b
-            v = d * d if v is None else v + d * d
-    s_y = torch.where(ok, v, torch.zeros(()))
-
-    def y(qq):
-        return s_y.gather(1, qq - q0[:, None])
-    o = o0[:, None] + torch.arange(K2_OUT)[None, :]
-    out = _polyphase_twin(y, taps, ds, o * stride)
-    if epilogue == 'band':
-        out = out / 210.
-    if epilogue:
-        out = torch.log10(1. + out) / 2.
-    return out.reshape(-1)[:n_out]
+    """polyphase_blur_cuda's one-stage table through group_twin."""
+    table = tfk.stage_table([tfk.plan_stage(x.shape[0], ds, blur, r,
+                                            bottom is not None, epilogue)])
+    return group_twin(table, [(x, bottom)])[0]
 
 
-# (samples, channels): shorter than one block; block edges with a partial
-# frame and an odd count of 105-sample blocks; several blocks, stereo
-TWIN_CASES = [(2 * RUN // 3, 1), (3 * RUN + 2 * FRAME + 150, 1),
-              (5 * RUN + 7 * FRAME + 105 + 9, 2), (4 * RUN, 3)]
+def cascade_twin(energy, crossings, bottom1, band1):
+    """polyphase_cascade_cuda's grouped launch through group_twin."""
+    table = tfk.cascade_table(energy.shape[0], crossings.shape[0],
+                              bottom1.shape[0], band1.shape[0])
+    return group_twin(table, [(energy, None), (crossings, None),
+                              (band1, None), (bottom1, None)])
 
 
-@pytest.mark.parametrize("s,c", TWIN_CASES)
-def test_kernel_twins_bit_equal_to_plain(s, c):
-    pcm = torch.from_numpy(_pcm(0, c, s, samples=s)).half().float()
-    plain = tfeat.pcm_frontend_plain(pcm)
-    twin = frontend_twin(pcm)
+# the cascade's six stages on K1's outputs (ops/features.py)
+def _cascade_stages(energy, crossings, bottom1, band1):
+    bottom2 = tfeat.polyphase_blur_plain(bottom1, 7, 3)
+    return (((energy, 1, 13), dict(epilogue='energy')),
+            ((crossings, 1, 13), {}),
+            ((band1, 42, 15), dict(epilogue='band')),
+            ((bottom1, 7, 3), {}),
+            ((bottom1, 6, 15), dict(r=7, bottom=bottom2, epilogue='band')),
+            ((bottom2, 1, 15), dict(r=6, epilogue='band')))
+
+
+# (samples, channels, dtype): shorter than one window; a ragged last
+# window with a partial frame (C = 1, S % 8 != 0, still on 16 bytes);
+# stereo and 3 channels on 16 bytes; stereo and 3 channels off them (the
+# scalar staging loop); f32 input, on and off 16 bytes
+TWIN_CASES = [(2 * RUN // 3, 1, 'i16'), (3 * RUN + 2 * FRAME + 150, 1, 'i16'),
+              (5 * RUN + 7 * FRAME + 105 + 9, 2, 'i16'), (4 * RUN, 3, 'i16'),
+              (2 * RUN + 5 * FRAME + 3, 2, 'i16'), (RUN + 37, 3, 'i16'),
+              (3 * RUN + 2 * FRAME + 150, 1, 'f32'),
+              (2 * RUN + 5 * FRAME + 2, 2, 'f32')]
+
+
+@pytest.mark.parametrize("s,c,dtype", TWIN_CASES)
+def test_kernel_twins_bit_equal_to_plain(s, c, dtype):
+    pcm = torch.from_numpy(_pcm(0, c, s, samples=s))
+    if dtype == 'f32':
+        pcm = pcm.float() * 0.37
+    plain = tfeat.pcm_frontend_plain(pcm.half().float() if dtype == 'i16'
+                                     else pcm)
+    twin = frontend_twin(pcm, grid=2)
     for name, p, t in zip(("energy", "crossings", "bottom", "band"), plain,
                           twin):
         assert p.shape == t.shape and torch.equal(p, t), name
-    energy, crossings, bottom1, band1 = plain
-    bottom2 = tfeat.polyphase_blur_plain(bottom1, 7, 3)
-    for args, kw in (((energy, 1, 13), dict(epilogue='energy')),
-                     ((crossings, 1, 13), {}),
-                     ((band1, 42, 15), dict(epilogue='band')),
-                     ((bottom1, 7, 3), {}),
-                     ((bottom1, 6, 15), dict(r=7, bottom=bottom2,
-                                             epilogue='band')),
-                     ((bottom2, 1, 15), dict(r=6, epilogue='band'))):
+    for args, kw in _cascade_stages(*plain):
         p = tfeat.polyphase_blur_plain(*args, **kw)
         t = blur_twin(*args, **kw)
         assert p.shape == t.shape and torch.equal(p, t), (args[1:], kw)
+    want = tfeat.polyphase_cascade_plain(*plain)
+    for k, (p, t) in enumerate(zip(want, cascade_twin(*plain))):
+        assert p.shape == t.shape and torch.equal(p, t), k
+
+
+@pytest.mark.parametrize("slots", [1, 2, 3, 4])
+def test_k1_ring_walk(slots):
+    """Every window is computed once, from the slot that holds it, for
+    grids below, at and above the window count."""
+    for n_windows in (1, 2, 7, 40):
+        for grid in (1, 3, 7, 64):
+            seen = k1_schedule(n_windows, grid, slots)
+            assert all(b == w % grid for w, (b, _) in seen.items())
+
+
+@pytest.mark.parametrize("s", [2 * RUN // 3, 5 * RUN + 7 * FRAME + 114,
+                               59270400, 73382400])
+def test_stage_tables_cover_every_output_once(s):
+    """The Python-built table of the cascade's grouped launch: each CTA
+    finds one stage, stage k's CTAs are first_block .. first_block +
+    n_blocks - 1, and their outputs cover every output of the stage once;
+    outputs per CTA a multiple of R2, shared memory within the target."""
+    n_e, n_f = s // 105, s // 210
+    n1 = n_f * 42
+    table = tfk.cascade_table(n_e, n_f, n1, n1)
+    first = np.array([st['first_block'] for st in table])
+    grid = sum(st['n_blocks'] for st in table)
+    owner = np.searchsorted(first, np.arange(grid), side='right') - 1
+    for k, st in enumerate(table):
+        assert st['per_block'] % tfk.R2 == 0
+        assert 4 * tfk.stage_smem_floats(st) <= tfk.K2_SMEM_TARGET
+        mine = np.nonzero(owner == k)[0] - st['first_block']
+        np.testing.assert_array_equal(mine, np.arange(st['n_blocks']))
+        o = (mine[:, None] * st['per_block']
+             + np.arange(st['per_block'])[None, :]).ravel()
+        counts = np.bincount(o[o < st['n_out']], minlength=st['n_out'])
+        assert len(counts) == st['n_out'] and (counts == 1).all()
+    assert [st['n_out'] for st in table] == [-(-n_e // 2)] + [n_f] * 3
+    assert [st['prologue'] for st in table] == [0, 0, 0, 3]
 
 
 def test_twin_centres_phases_with_unequal_tap_counts():
-    """polyphase_at's per-phase count and centre for L not a multiple of
-    ds (17 taps over 5 phases: 4, 4, 3, 3, 3), against _conv_same on each
-    strided phase added in phase order."""
+    """_downsample_blur's per-phase count and centre for L not a multiple
+    of ds (17 taps over 5 phases: 4, 4, 3, 3, 3), against _conv_same on
+    each strided phase added in phase order."""
     x = torch.from_numpy(np.random.default_rng(4).standard_normal(
         500).astype(np.float32))
     taps = hann_taps(19)
@@ -290,11 +485,19 @@ def test_twin_centres_phases_with_unequal_tap_counts():
     for i in range(5):
         part = tfeat._conv_same(x[i::5], taps[i::5])
         want = part if want is None else want + part
-
-    def y(q):
-        return torch.where((q >= 0) & (q < 500), x[q.clamp(0, 499)],
-                           torch.zeros(()))
-    got = _polyphase_twin(y, taps, 5, torch.arange(100))
+    got = None
+    for i in range(5):
+        t = (17 - i + 4) // 5
+        c = (t - 1) // 2
+        j = torch.arange(100)
+        part = None
+        for m in range(t):
+            q = 5 * (j + c - m) + i
+            y = torch.where((q >= 0) & (q < 500), x[q.clamp(0, 499)],
+                            torch.zeros(()))
+            part = float(taps[i + 5 * m]) * y if part is None else (
+                part + float(taps[i + 5 * m]) * y)
+        got = part if got is None else got + part
     assert torch.equal(got, want)
 
 
@@ -310,11 +513,16 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 def test_feature_work_counts_bench_bytes():
     """The bench pair's 73,382,400 + 59,270,400 padded mono samples: K1
-    reads 2 B and writes ~1.66 B per sample (485 MB in all)."""
-    k1 = sum(tfk.feature_work(1, s)['pcm_frontend']
-             for s in (73382400, 59270400))
+    reads 2 B and writes ~1.66 B per sample (485 MB in all); the cascade
+    must read K1's four outputs once and write the five streams, 92 f32
+    per frame (232 MB)."""
+    work = [tfk.feature_work(1, s) for s in (73382400, 59270400)]
+    k1 = sum(w['pcm_frontend'] for w in work)
     assert abs(k1 / 132652800 - (2 + 4 * (1 / 105 + 1 / 210 + 2 / 5))) < 1e-6
     assert 484e6 < k1 < 486e6
+    frames = (73382400 + 59270400) // 210
+    assert sum(w['polyphase_blur'] for w in work) == 4 * 92 * frames
+    assert 232e6 < 4 * 92 * frames < 233e6
 
 
 # ---------------------------------------------------------------------------
