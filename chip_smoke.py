@@ -1,9 +1,10 @@
 #!/usr/bin/env python
 """Smoke run of the PyTorch port on an NVIDIA GPU (H100): build its CUDA
 kernels from the sources, hold each kernel against its plain version, drive
-the single-pair main path on the bench pair, the CLI, a feature film and a
-batch of 8 pairs, and check the results against the JAX package's
-(tests/data/torch_*_expected.json).
+the single-pair main path on the bench pair, the CLI, a feature film, a
+batch of 8 pairs, the device-feature path and the output side (device fit,
+device phase vocoder and resampler), and check the results against the
+JAX package's (tests/data/torch_*_expected.json).
 
     python3 chip_smoke.py
 
@@ -85,7 +86,35 @@ Needs one CUDA device and nvcc; exits non-zero without them. Phases:
    nodes and start offset within 10 ms, similarity within 0.5); (c) the
    batch of 8 through align_batch_from_pcm(features='device'), each pair
    equal to its align_from_pcm(features='device'), wall, audio-minutes per
-   second, host waits in one pair's dispatch.
+   second, host waits in one pair's dispatch;
+8. the output side: (a) the bench pair through
+   align_from_pcm(fit_backend='device') against the JAX device-fit fixture
+   (tests/data/torch_fit_device_expected.json: nodes and start offset
+   within 10 ms, similarity within 0.5, slope within 1e-4, no fallback
+   WARNING, two ADMM launches); fused_lasso_admm (csrc/fit_admm.cu)
+   against its plain version on the fit's four problems (both stages on
+   the bench pair's and the film's compressed nodes): t and z bit-equal,
+   CUDA-event times beside the bytes and fp32 bounds and the solve's
+   barrier steps on an empty CTA; the batch of 8's node sets through
+   solve_l1_fit_device_batched equal to the per-problem calls; (b)
+   pv_phase_lock (csrc/pv_lock.cu) on the rate pair's first stretched
+   segment (stereo spectra on the card): bit-equal to its plain version
+   on the path's first 8,192-frame block, the whole segment in one launch
+   against the host library's recurrence on the same magnitudes, phases
+   and increments, times beside the bytes bound and the frames' empty
+   steps; (c) the rate pair as stereo WAVs through combine() with the
+   device PV (counted), the device and host resamplers
+   (no_pitch_correction), and - cut to the video's first 240 s, the host
+   references being slower - the host PV, the device PV and WSOLA: each
+   run's wall and stretch stage; the device and host backends' agreement
+   in f16 grid steps and RMS, measured (their sample positions are f32 and
+   f64); the card's device resampler within one f16 grid step of the same
+   function on the CPU (the plain versions the CPU tests hold to JAX) on
+   the whole first stretched segment, the device PV within RMS 0.1 of it
+   (PV_CARD_RMS) on the segment's first 2^19 samples; the CLI with
+   --fit_backend device
+   (and --no_pitch_correction, to keep WSOLA's host time out) on the full
+   WAVs: exit 0, no fallback WARNING, ADMM launches.
 Each phase prints its wall time. The line before the last is the kernels'
 JSON record; the last line is {"ok": true, "device": {...}}.
 """
@@ -115,8 +144,10 @@ BATCH_EXPECTED = os.path.join(REPO, "tests", "data",
                               "torch_batch8_expected.json")
 DEVICE_EXPECTED = os.path.join(REPO, "tests", "data",
                                "torch_device_features_expected.json")
+FIT_EXPECTED = os.path.join(REPO, "tests", "data",
+                            "torch_fit_device_expected.json")
 FIXTURES = (EXPECTED, COMBINE_EXPECTED, FILM_EXPECTED, BATCH_EXPECTED,
-            DEVICE_EXPECTED)
+            DEVICE_EXPECTED, FIT_EXPECTED)
 MARGIN_REL = 1e-3           # batch margin (an f16 word) vs the f32 margin
 PLANTED_OFFSET_S = 202.0    # the film pair's lead-in
 TOL_S = 0.010               # node / start-offset agreement with JAX, seconds
@@ -174,12 +205,15 @@ def cuda_ms(fn, reps=REPS):
 def kernel_counts(reset=False):
     """{kernel: launches so far}; reset sets every count to 0 first."""
     from describealign_tpu_torch.ops import (coarse_dp, features_kernel,
-                                             fine_kernel)
+                                             fine_kernel, fit_kernel,
+                                             pv_kernel)
     wrappers = {"fine_match": fine_kernel.fine_match,
                 "dp_forward": coarse_dp.dp_forward,
                 "dp_backtrace": coarse_dp.dp_backtrace,
                 "pcm_frontend": features_kernel.pcm_frontend_cuda,
-                "polyphase_blur": features_kernel.polyphase_blur_cuda}
+                "polyphase_blur": features_kernel.polyphase_blur_cuda,
+                "fused_lasso_admm": fit_kernel.fused_lasso_admm,
+                "pv_phase_lock": pv_kernel.pv_phase_lock}
     if reset:
         for w in wrappers.values():
             w.launches = 0
@@ -461,7 +495,8 @@ import describealign_tpu_torch.media.decode as decode
 import describealign_tpu_torch.media.mux as mux
 import describealign_tpu_torch.report.plots as plots
 import describealign_tpu_torch.stretch.segments as segments
-from describealign_tpu_torch.ops import coarse_dp, features_kernel, fine_kernel
+from describealign_tpu_torch.ops import (coarse_dp, features_kernel,
+                                         fine_kernel, fit_kernel, pv_kernel)
 stages = {}
 def timed(mod, name, stage):
     fn = getattr(mod, name)
@@ -482,7 +517,9 @@ wrappers = {"fine_match": fine_kernel.fine_match,
             "dp_forward": coarse_dp.dp_forward,
             "dp_backtrace": coarse_dp.dp_backtrace,
             "pcm_frontend": features_kernel.pcm_frontend_cuda,
-            "polyphase_blur": features_kernel.polyphase_blur_cuda}
+            "polyphase_blur": features_kernel.polyphase_blur_cuda,
+            "fused_lasso_admm": fit_kernel.fused_lasso_admm,
+            "pv_phase_lock": pv_kernel.pv_phase_lock}
 for w in wrappers.values():
     w.launches = 0
 t0 = time.perf_counter()
@@ -558,7 +595,8 @@ def phase_combine(v, a, smi, n_chunks):
             "fine_match": n_chunks * matching.N_TRACKS,
             "dp_forward": matching.N_TRACKS,
             "dp_backtrace": matching.N_TRACKS,
-            "pcm_frontend": 0, "polyphase_blur": 0},
+            "pcm_frontend": 0, "polyphase_blur": 0,
+            "fused_lasso_admm": 0, "pv_phase_lock": 0},
     }
     print(f"[4 CLI] python -m describealign_tpu_torch on the bench pair's "
           f"WAVs ({expected['video_samples']} video samples, 2 channels): "
@@ -708,7 +746,8 @@ def phase_film(device, smi):
             "fine_match": n_chunks * matching.N_TRACKS,
             "dp_forward": 2 * tiles * matching.N_TRACKS,
             "dp_backtrace": tiles * matching.N_TRACKS,
-            "pcm_frontend": 0, "polyphase_blur": 0},
+            "pcm_frontend": 0, "polyphase_blur": 0,
+            "fused_lasso_admm": 0, "pv_phase_lock": 0},
     }
     print(f"[5b film e2e] {e2e:.2f} s | split "
           + ", ".join(f"{k} {t:.3f} s" for k, t in split.items())
@@ -845,7 +884,8 @@ def phase_batch(device, smi):
     want = {"fine_match": n_chunks * matching.N_TRACKS,
             "dp_forward": 8 * matching.N_TRACKS,
             "dp_backtrace": 8 * matching.N_TRACKS,
-            "pcm_frontend": 0, "polyphase_blur": 0}
+            "pcm_frontend": 0, "polyphase_blur": 0,
+            "fused_lasso_admm": 0, "pv_phase_lock": 0}
     rows, checks = [], {}
     for k, (got, one, e) in enumerate(zip(results, singles, expected)):
         x, y, sim, path, slope, margin = got
@@ -1220,7 +1260,8 @@ def phase_device_features(v, a, host_split, batch, smi):
             "dp_forward": 3 * matching.N_TRACKS,
             "dp_backtrace": 3 * matching.N_TRACKS,
             "pcm_frontend": 3 * 2,
-            "polyphase_blur": 3 * 2}
+            "polyphase_blur": 3 * 2,
+            "fused_lasso_admm": 0, "pv_phase_lock": 0}
     split = {}
     run(split)
     x, y, sim, _, slope, margin = result
@@ -1307,7 +1348,8 @@ def phase_device_features(v, a, host_split, batch, smi):
                   "dp_forward": 8 * matching.N_TRACKS,
                   "dp_backtrace": 8 * matching.N_TRACKS,
                   "pcm_frontend": 8 * 2,
-                  "polyphase_blur": 8 * 2},
+                  "polyphase_blur": 8 * 2,
+                  "fused_lasso_admm": 0, "pv_phase_lock": 0},
               "quiet": quiet == "",
               "no retry": retries == 0}
     print(f"[7c device features batch] align_batch_from_pcm(features="
@@ -1323,6 +1365,462 @@ def phase_device_features(v, a, host_split, batch, smi):
     if not all(checks.values()):
         raise AssertionError(f"the device-feature batch disagrees: {checks}")
     return launches, batch_launches, len(waits)
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the output side (the device fit, the device PV and resampler)
+# ---------------------------------------------------------------------------
+
+FIT_TOL_S = TOL_S           # device fit vs the JAX device fit, seconds
+
+
+class FitNodes:
+    """Records the compressed nodes every piecewise-linear fit of the port
+    is given (fit.solve_l1_fit is looked up at call time by the host tail),
+    under the label of the phase that runs it; pool threads append too."""
+
+    def __init__(self):
+        from describealign_tpu_torch.alignment import fit
+        self.label, self.sets, self._fit = None, [], fit
+        self._real = fit.solve_l1_fit
+
+        def record(x, y, *args, **kwargs):
+            self.sets.append((self.label, np.asarray(x), np.asarray(y)))
+            return self._real(x, y, *args, **kwargs)
+        fit.solve_l1_fit = record
+
+    def of(self, label):
+        return [(x, y) for lab, x, y in self.sets if lab == label]
+
+
+def fit_stage_problems(x, y):
+    """The two (b, data_cost, kappa) fused-lasso problems of the device fit
+    on nodes (x, y) (stage 2 follows stage 1's result), and the fit."""
+    from describealign_tpu_torch.alignment import fit_device
+    problems, real = [], fit_device.fused_lasso_l1_device
+
+    def record(b, data_cost, kappa, **kw):
+        problems.append((np.asarray(b), np.asarray(data_cost),
+                         np.asarray(kappa)))
+        return real(b, data_cost, kappa, **kw)
+    fit_device.fused_lasso_l1_device = record
+    try:
+        result = fit_device.solve_l1_fit_device(x, y, device="cuda")
+    finally:
+        fit_device.fused_lasso_l1_device = real
+    return problems, result
+
+
+def admm_vs_plain(label, problem, smi):
+    """fused_lasso_admm against its plain version on one padded problem on
+    the card: t and z bit-equal (signed zeros too), times, bounds."""
+    from describealign_tpu_torch.alignment import fit_device
+    from describealign_tpu_torch.ops import fit_kernel as fk
+    n = len(problem[0])
+    n_pad = fit_device.bucket(n)
+    prep = fit_device._prep_problem(*problem, n_pad)
+    args = [torch.from_numpy(np.ascontiguousarray(
+        np.asarray(a, np.float64)[None] if np.ndim(a) else [a],
+        np.float32)).cuda() for a in prep]
+    t, z = fk.fused_lasso_admm(*args)
+    t0 = time.perf_counter()
+    tp, zp = fk.fused_lasso_admm_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    equal = (torch.equal(t, tp) and torch.equal(z, zp)
+             and torch.equal(torch.signbit(z), torch.signbit(zp)))
+    err = float(torch.max(torch.abs(t - tp)))
+    flips = int(torch.sum((z != 0) != (zp != 0)))
+    ms = cuda_ms(lambda: fk.fused_lasso_admm(*args))
+    nbytes, flops = fk.fit_admm_work(n_pad)
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    ops_ms = flops / FP32_FLOPS * 1e3
+    steps = fk.steps_per_solve(n_pad)
+    floor_ms = fk.empty_steps_ms(steps, n_pad)
+    where = "shared" if n_pad <= fk.SHARED_MAX_N else "global scratch"
+    print(f"[8a fit kernel vs plain] {label}: n {n}, n_pad {n_pad} (state "
+          f"in {where}), {int((z != 0).sum())} breaks: t and z "
+          f"{'bit-equal' if equal else 'DIFFER'} (max |t - plain| {err:.3g},"
+          f" {flips} break flips) | kernel {ms:.3f} ms, plain {plain_ms:.1f}"
+          f" ms | bounds: bytes {bytes_ms:.5f} ms at 3.35 TB/s, fp32 "
+          f"{ops_ms:.4f} ms at 67 TFLOP/s, {steps} barrier steps of an "
+          f"empty CTA {floor_ms:.3f} ms ({floor_ms / ms:.1%} of the "
+          f"kernel) ({smi})", flush=True)
+    if not equal:
+        raise AssertionError(f"fused_lasso_admm differs from its plain "
+                             f"version on {label}")
+    return {"n": n, "n_pad": n_pad, "ms": ms, "plain_ms": plain_ms,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "floor_ms": floor_ms,
+            "err": err}
+
+
+def phase_fit_device(v, a, nodes, smi):
+    """Phase 8a: the device fit. The bench pair through align_from_pcm(...,
+    fit_backend='device') against the JAX fixture, with the ADMM counted;
+    the fit's four problems (both stages on the bench pair's and the
+    film's compressed nodes) through the kernel and its plain version;
+    the batch of 8's node sets through solve_l1_fit_device_batched against
+    the per-problem calls. Returns (launches in the fixture run, rows)."""
+    from describealign_tpu_torch.alignment import api, fit_device
+    with open(FIT_EXPECTED) as f:
+        expected = json.load(f)
+    nodes.label = "8a"
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        api.align_from_pcm(v, a, device="cuda", fit_backend="device")
+    kernel_counts(reset=True)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        x, y, sim, _, slope, _ = api.align_from_pcm(
+            v, a, device="cuda", fit_backend="device")
+    e2e = time.perf_counter() - t0
+    launches = kernel_counts()
+    printed = out.getvalue()
+    bench_nodes = nodes.of("8a")[-1]
+    jx = np.asarray(expected["audio_times_s"])
+    jy = np.asarray(expected["video_times_s"])
+    node_err = float(np.max(np.abs(np.interp(jx, x, y) - jy)))
+    checks = {
+        "nodes": node_err <= FIT_TOL_S,
+        "start offset": abs(float(x[0] - y[0]) - expected["start_offset_s"])
+        <= FIT_TOL_S,
+        "similarity": abs(sim - expected["similarity_percent"]) <= 0.5,
+        "median slope": abs(slope - expected["median_slope"]) <= 1e-4,
+        "compressed nodes": len(bench_nodes[0]) == len(expected["nodes_x"]),
+        "no fallback": "WARNING: device fit" not in printed,
+        "launches": launches["fused_lasso_admm"] == 2,
+    }
+    print(f"[8a device fit] align_from_pcm(fit_backend='device') on the "
+          f"bench pair: {e2e:.3f} s, {len(bench_nodes[0])} compressed nodes "
+          f"(JAX {len(expected['nodes_x'])}), max node error "
+          f"{node_err * 1e3:.2f} ms over {len(jx)} JAX nodes, similarity "
+          f"{sim:.3f} (JAX {expected['similarity_percent']:.3f}), median "
+          f"slope {slope:.9f} (JAX {expected['median_slope']:.9f}) | "
+          f"launches {launches} ({smi}) - "
+          + ", ".join(f"{k} {'ok' if ok else 'FAIL'}"
+                      for k, ok in checks.items()), flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"the device fit disagrees with JAX: {checks}")
+
+    rows = {}
+    for label, (nx, ny) in (("bench pair", bench_nodes),
+                            ("film", nodes.of("5")[-1])):
+        problems, _ = fit_stage_problems(nx, ny)
+        for stage, problem in enumerate(problems, 1):
+            rows[f"{label} stage {stage}"] = admm_vs_plain(
+                f"{label} stage {stage}", problem, smi)
+
+    sets = nodes.of("6")[:8]
+    t0 = time.perf_counter()
+    batched = fit_device.solve_l1_fit_device_batched(sets, device="cuda")
+    batch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    singles = [fit_device.solve_l1_fit_device(sx, sy, device="cuda")
+               for sx, sy in sets]
+    single_s = time.perf_counter() - t0
+    same = all(np.array_equal(b[k], s[k]) for b, s in zip(batched, singles)
+               for k in ("fit_err", "slopes", "smooth_y"))
+    print(f"[8a fit batch] solve_l1_fit_device_batched on the batch of 8's "
+          f"node sets ({[len(sx) for sx, _ in sets]} nodes): {batch_s:.3f} s"
+          f" (2 launches) against {single_s:.3f} s one by one (16): "
+          f"{'equal' if same else 'DIFFERENT'} results ({smi})", flush=True)
+    if len(sets) != 8 or not same:
+        raise AssertionError("the batched device fit differs from the "
+                             "per-problem calls")
+    return launches, rows
+
+
+def pv_spectrum(seg, num_out, device):
+    """The analysis spectrum (C, F, 513) of the device PV stretching seg to
+    num_out samples, as stretch.phase_vocoder._pv_device computes it, its
+    omega and its f32 rate."""
+    from describealign_tpu_torch.stretch import phase_vocoder as pv
+    c, n_in = seg.shape
+    rate32 = np.float32(n_in / num_out)
+    f = -(-num_out // pv.HOP_SYN)
+    pos = torch.round(torch.arange(f, dtype=torch.float32, device=device)
+                      * float(np.float32(pv.HOP_SYN) * rate32)).long()
+    pad = torch.zeros((c, max(n_in, int(pos[-1]) + pv.N_FFT)),
+                      device=device)
+    pad[:, :n_in] = torch.from_numpy(seg).to(device)
+    frames = (pad.unfold(1, pv.N_FFT, 1).index_select(1, pos)
+              * torch.from_numpy(pv._WINDOW).to(device))
+    omega = torch.from_numpy((2 * np.pi * np.arange(pv._BINS) * pv.HOP_SYN
+                              / pv.N_FFT).astype(np.float32)).to(device)
+    return torch.fft.rfft(frames, dim=2), omega, rate32
+
+
+def phase_pv_kernel(seg, num_out, smi):
+    """Phase 8b: pv_phase_lock on the rate pair's first stretched segment:
+    kernel vs plain on its first block (the path's 8,192 frames), the
+    kernel over the whole segment vs the host library's recurrence on the
+    same magnitudes, phases and increments, times and bounds."""
+    from describealign_tpu_torch.ops import pv_kernel as pk
+    from describealign_tpu_torch.stretch import phase_vocoder as pv
+    spec, omega, rate32 = pv_spectrum(seg, num_out, "cuda")
+    c, f, bins = spec.shape
+    blk = spec[:, :pv.DEVICE_BLK_FRAMES].contiguous()
+    out_k, carry_k = pk.pv_phase_lock(blk, omega, rate32)
+    t0 = time.perf_counter()
+    out_p, carry_p = pk.pv_phase_lock_plain(blk, omega, float(rate32))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    equal = torch.equal(out_k, out_p) and torch.equal(carry_k, carry_p)
+    err = float(torch.max(torch.abs(out_k - out_p)))
+    ms = cuda_ms(lambda: pk.pv_phase_lock(blk, omega, rate32))
+    nbytes, flops = pk.pv_lock_work(c, blk.shape[1])
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_S * 1e3, flops / FP32_FLOPS * 1e3
+    floor_blk = pk.empty_steps_ms(blk.shape[1], c)
+
+    # the whole segment in one launch, against the host recurrence
+    seg_ms = cuda_ms(lambda: pk.pv_phase_lock(spec, omega, rate32), reps=2)
+    out_seg, _ = pk.pv_phase_lock(spec, omega, rate32)
+    rate_t = torch.tensor(float(rate32), device="cuda")
+    two_pi = torch.tensor(pk.TWO_PI, device="cuda")
+    mag = torch.hypot(spec.real, spec.imag)
+    pa = torch.atan2(spec.imag, spec.real)
+    om = omega * rate_t
+    dphi = pa[:, 1:] - pa[:, :-1] - om
+    dphi = dphi - two_pi * torch.round(dphi / two_pi)
+    iors = (om + dphi) / rate_t
+    pa_h, mag_h, iors_h = (np.ascontiguousarray(t.cpu().numpy())
+                           for t in (pa, mag, iors))
+    del dphi, iors
+    t0 = time.perf_counter()
+    phases = pv._phase_lock(pa_h, mag_h, iors_h)   # the host library's
+    host_s = time.perf_counter() - t0
+    ph = torch.from_numpy(phases).cuda()
+    out_h = torch.complex(mag * torch.cos(ph), mag * torch.sin(ph))
+    seg_equal = torch.equal(out_seg, out_h)
+    seg_err = float(torch.max(torch.abs(out_seg - out_h)) / torch.max(mag))
+    seg_bytes, seg_flops = pk.pv_lock_work(c, f)
+    seg_bound = max(seg_bytes / HBM_BYTES_S, seg_flops / FP32_FLOPS) * 1e3
+    seg_floor = pk.empty_steps_ms(f, c)
+    print(f"[8b PV kernel vs plain] rate pair's first stretched segment "
+          f"({c} channels, {seg.shape[1]} -> {num_out} samples, {f} frames,"
+          f" rate {float(rate32):.6f}): first {blk.shape[1]} frames "
+          f"{'bit-equal' if equal else 'DIFFER'} (max |out - plain| "
+          f"{err:.3g}); kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bounds "
+          f"bytes {bytes_ms:.4f} / fp32 {ops_ms:.4f} ms, {blk.shape[1]} "
+          f"empty frame steps {floor_blk:.3f} ms | whole segment in one "
+          f"launch {seg_ms:.2f} ms ({seg_ms / f * 1e3:.3f} us per frame) "
+          f"against {f} empty frame steps {seg_floor:.2f} ms and the bound "
+          f"{seg_bound:.3f} ms; vs the host library's recurrence "
+          f"({host_s:.2f} s): {'bit-equal' if seg_equal else 'differs'}, "
+          f"max |diff| {seg_err:.3g} of the peak magnitude ({smi})",
+          flush=True)
+    if not equal or seg_err > PV_HOST_REL:
+        raise AssertionError("pv_phase_lock differs from its plain version "
+                             "or from the host recurrence")
+    return {"ms": ms, "plain_ms": plain_ms, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "floor_ms": floor_blk, "err": err,
+            "frames": blk.shape[1], "segment_frames": f,
+            "segment_ms": seg_ms, "segment_bound_ms": seg_bound,
+            "segment_floor_ms": seg_floor, "segment_vs_host": seg_err}
+
+
+# the whole segment's kernel output against the host library's recurrence
+# on the same magnitudes, phases and increments (computed on the card):
+# the recurrence has sums and selects only, nothing g++ could contract into
+# an FMA, so they are expected bit-equal; 1e-6 of the peak magnitude holds
+# the check against a stray rounding
+PV_HOST_REL = 1e-6
+CUT_VIDEO_S = 240.0         # the host references' cut of the rate pair
+DEVICE_CHECK = 2 ** 19      # input samples of the PV's card-vs-CPU check
+# the device PV on the card (cuFFT) against the same function on the CPU:
+# the kernel is bit-equal to its plain version (8b), but the two FFTs
+# round differently, and a wrap or a locking choice between near-equal
+# neighbours decided differently offsets that bin's carried phase for
+# good, so the outputs part slowly: RMS of the difference 0.022 of the
+# signal's over the first 2^19 samples of the rate pair's segment (PR 8's
+# chip runs; the port's CPU path against the JAX program: 6.8e-4 there).
+# 0.1 still fails a broken block carry or overlap-add (~1) or an unrelated
+# signal (~1.4)
+PV_CARD_RMS = 0.1
+
+
+def stereo(pcm):
+    """(2, n) int16: the mono PCM and a 3/4-scaled copy."""
+    return np.concatenate([pcm, (pcm.astype(np.int32) * 3 // 4)
+                           .astype(np.int16)])
+
+
+def first_stretched_segment(audio_times, video_times):
+    """(x0, x1, y0, y1) in samples of the first segment the pitch-preserving
+    stretcher takes (stretch/segments.py's rules)."""
+    from describealign_tpu_torch.constants import (
+        JUST_NOTICEABLE_DIFF_IN_FREQ_RATIO, MAX_RATE_RATIO_DIFF_ALIGN,
+        MIN_DURATION_TO_REPLACE_SECONDS, MIN_STRETCH_OFFSET)
+    xs = (np.asarray(audio_times) * 44100).astype(int)
+    ys = (np.asarray(video_times) * 44100).astype(int)
+    for i in range(len(xs) - 1):
+        dx, dy = xs[i + 1] - xs[i], ys[i + 1] - ys[i]
+        slope = dx / dy
+        if (dy >= MIN_DURATION_TO_REPLACE_SECONDS * 44100
+                and abs(1 - slope) <= MAX_RATE_RATIO_DIFF_ALIGN
+                and abs(1 - slope) > JUST_NOTICEABLE_DIFF_IN_FREQ_RATIO
+                and abs(dy - dx) >= MIN_STRETCH_OFFSET):
+            return xs[i], xs[i + 1], ys[i], ys[i + 1]
+    raise AssertionError("the rate pair has no stretched segment")
+
+
+def run_combine(video_wav, audio_wav, root, tag, **kw):
+    """combine() in stretch mode on one WAV pair into root/tag (alignments
+    cached in root/plots): (seconds, stretch stage seconds, the stretched
+    array, launches)."""
+    from describealign_tpu_torch import pipeline
+    from describealign_tpu_torch.stretch import segments
+    real, seen = segments.replace_aligned_segments, {}
+
+    def stretch(video_arr, *args, **kwargs):
+        t0 = time.perf_counter()
+        real(video_arr, *args, **kwargs)
+        seen["s"] = time.perf_counter() - t0
+        seen["out"] = video_arr.copy()
+    segments.replace_aligned_segments = stretch
+    try:
+        kernel_counts(reset=True)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            pipeline.combine([video_wav], [audio_wav], stretch_audio=True,
+                             yes=True, output_dir=os.path.join(root, tag),
+                             alignment_dir=os.path.join(root, "plots"),
+                             **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_counts()
+    finally:
+        segments.replace_aligned_segments = real
+    return wall, seen["s"], seen["out"], launches
+
+
+def f16_steps(got, want):
+    """Max |got - want| in f16 grid steps of the larger value (floored at
+    the step of 1.0) and the RMS of the difference against want's."""
+    step = np.spacing(np.maximum(np.maximum(np.abs(got), np.abs(want)),
+                                 1.0).astype(np.float16)).astype(np.float32)
+    d = got - want
+    return (float(np.max(np.abs(d) / step)),
+            float(np.sqrt(np.mean(d.astype(np.float64) ** 2))
+                  / np.sqrt(np.mean(want.astype(np.float64) ** 2))))
+
+
+def phase_stretch(rate_pair, smi):
+    """Phase 8b-c: the rate pair (22-min video, its description slowed by 3
+    %) as stereo WAVs through combine() with the device PV, the host PV,
+    WSOLA and both resamplers, and the CLI with --fit_backend device; the
+    PV kernel on its first stretched segment (8b). Returns (pv_phase_lock's
+    launches in the device-PV run, the 8b record, the CLI's launches)."""
+    from describealign_tpu_torch.alignment import api
+    from describealign_tpu_torch.media.decode import write_wav
+    from describealign_tpu_torch.stretch import phase_vocoder, resample
+    v, a = rate_pair
+    with contextlib.redirect_stdout(io.StringIO()):
+        ax, vy, *_ = api.align_from_pcm(v, a, device="cuda")
+    x0, x1, y0, y1 = first_stretched_segment(ax, vy)
+    pv_rec = phase_pv_kernel(stereo(a)[:, x0:x1].astype(np.float32),
+                             y1 - y0, smi)
+
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as root:
+        t0 = time.perf_counter()
+        full = (os.path.join(root, "film.wav"), os.path.join(root, "desc.wav"))
+        write_wav(full[0], stereo(v))
+        write_wav(full[1], stereo(a))
+        cut_a = int((180.0 + CUT_VIDEO_S * 1.03 + 10.0) * 44100)
+        cut = (os.path.join(root, "cut_film.wav"),
+               os.path.join(root, "cut_desc.wav"))
+        write_wav(cut[0], stereo(v[:, :int(CUT_VIDEO_S * 44100)]))
+        write_wav(cut[1], stereo(a[:, :cut_a]))
+        wav_s = time.perf_counter() - t0
+
+        runs = {}
+        for tag, media, kw in (
+                ("pv device", full, dict(stretcher="pv", pv_backend="device")),
+                ("resample device", full, dict(no_pitch_correction=True,
+                                               resample_backend="device")),
+                ("resample host", full, dict(no_pitch_correction=True)),
+                ("cut pv device", cut, dict(stretcher="pv",
+                                            pv_backend="device")),
+                ("cut pv host", cut, dict(stretcher="pv")),
+                ("cut wsola", cut, {})):
+            runs[tag] = run_combine(*media, root, tag.replace(" ", "_"),
+                                    **kw)
+        pv_launches = runs["pv device"][3]
+        # the device backends against the host ones: measured, not bounded
+        # (their positions are f32 in the JAX design, the host's f64: a
+        # position that rounds to another sample moves a PV frame, and
+        # the PV's phases then drift apart for good; it moves the
+        # resampler's 3-point window on this near-white content)
+        pv_steps, pv_rms = f16_steps(runs["cut pv device"][2],
+                                     runs["cut pv host"][2])
+        rs_steps, rs_rms = f16_steps(runs["resample device"][2],
+                                     runs["resample host"][2])
+
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", CLI_RUN, *full, "--stretch_audio",
+             "--yes", "--no_pitch_correction", "--fit_backend", "device",
+             "--output_dir", os.path.join(root, "cli"),
+             "--alignment_dir", os.path.join(root, "cli_plots")],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    cli_out, _, last = proc.stdout.rstrip("\n").rpartition("\n")
+    cli = json.loads(last)
+    n_out = runs["pv device"][2].shape[1]
+    for tag, (wall, st, _, launches) in runs.items():
+        scope = (f"the first {CUT_VIDEO_S:.0f} s of the video: the host "
+                 f"references cut" if tag.startswith("cut")
+                 else f"{n_out / 44100 / 60:.1f}-min")
+        print(f"[8c stretch] combine() {tag} ({scope} stereo): {wall:.2f} s,"
+              f" stretch stage {st:.2f} s, launches "
+              f"fused_lasso_admm {launches['fused_lasso_admm']}, "
+              f"pv_phase_lock {launches['pv_phase_lock']} ({smi})",
+              flush=True)
+    # the card's device backends against the same functions on the CPU
+    # (their plain versions, which tests/test_torch_stretch.py holds to
+    # the JAX package's): the resampler on the whole first stretched
+    # segment, the PV on its first DEVICE_CHECK input samples
+    seg = stereo(a)[:, x0:x1].astype(np.float32)
+    rs = [resample.resample_segment(seg, 0, seg.shape[1], y1 - y0,
+                                    backend="device", device=d)
+          for d in ("cuda", "cpu")]
+    rs_card_steps, _ = f16_steps(*rs)
+    short = seg[:, :DEVICE_CHECK]
+    pv_out = [phase_vocoder.pv_stretch(
+        short, int(round(DEVICE_CHECK * (y1 - y0) / (x1 - x0))),
+        backend="device", device=d) for d in ("cuda", "cpu")]
+    pv_card_steps, pv_card_rms = f16_steps(*pv_out)
+    checks = {
+        "pv launched": pv_launches["pv_phase_lock"] > 0,
+        "host runs launch no PV": all(
+            r[3]["pv_phase_lock"] == 0 for t, r in runs.items()
+            if "pv device" not in t),
+        "device PV card vs CPU": pv_card_rms < PV_CARD_RMS,
+        "device resampler card vs CPU": rs_card_steps <= 1.0,
+        "CLI fit launched": cli["launches"]["fused_lasso_admm"] > 0,
+        "CLI no fallback": "WARNING: device fit" not in cli_out,
+    }
+    print(f"[8c stretch agreement] device vs host (measured): cut pair's "
+          f"PV max {pv_steps:.0f} f16 grid steps, RMS of the difference "
+          f"{pv_rms:.3g} of the signal's; full pair's resampler max "
+          f"{rs_steps:.0f} steps, RMS {rs_rms:.3g} | the card vs the CPU's "
+          f"plain versions: resampler on the first stretched segment "
+          f"({seg.shape[1]} -> {y1 - y0} samples) max {rs_card_steps:.1f} "
+          f"f16 grid steps, PV on its first {DEVICE_CHECK} samples max "
+          f"{pv_card_steps:.1f} steps, RMS {pv_card_rms:.3g} | WAVs written "
+          f"in {wav_s:.1f} s | CLI "
+          f"--fit_backend device --no_pitch_correction on the full WAVs: "
+          f"{cli_s:.2f} s, combine() {cli['combine_s']:.2f} s, launches "
+          f"{cli['launches']} ({smi}) - "
+          + ", ".join(f"{k} {'ok' if ok else 'FAIL'}"
+                      for k, ok in checks.items()), flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"the output side disagrees: {checks}")
+    return pv_launches, pv_rec, cli["launches"]
 
 
 def main():
@@ -1341,7 +1839,8 @@ def main():
     from describealign_tpu_torch.alignment.native import native_lib
     from describealign_tpu_torch.bench_pair import build_scale_pair
     from describealign_tpu_torch.ops import (coarse_dp, features_kernel,
-                                             fine_kernel)
+                                             fine_kernel, fit_kernel,
+                                             pv_kernel)
 
     device = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -1349,13 +1848,15 @@ def main():
     # --- phase 1: the card and the builds --------------------------------
     t_phase = time.perf_counter()
     smi = card_line()
-    nvcc_s, dp_s, feat_s, gxx_s = build_all(
+    nvcc_s, dp_s, feat_s, fit_s, pv_s, gxx_s = build_all(
         fine_kernel.load_library, coarse_dp.load_library,
-        features_kernel.load_library, native_lib)
+        features_kernel.load_library, fit_kernel.load_library,
+        pv_kernel.load_library, native_lib)
     print(smi)
     print(f"[1 card] {smi} | torch {torch.__version__} | CUDA "
           f"{torch.version.cuda} | nvcc fine_match.cu {nvcc_s:.2f} s, "
-          f"coarse_dp.cu {dp_s:.2f} s, features_dev.cu {feat_s:.2f} s | g++ "
+          f"coarse_dp.cu {dp_s:.2f} s, features_dev.cu {feat_s:.2f} s, "
+          f"fit_admm.cu {fit_s:.2f} s, pv_lock.cu {pv_s:.2f} s | g++ "
           f"host library {gxx_s:.2f} s (built side by side)", flush=True)
     t_phase = phase_done(1, t_phase, smi)
 
@@ -1402,6 +1903,9 @@ def main():
     t_phase = phase_done(2, t_phase, smi)
 
     # --- phase 3: the main path ------------------------------------------
+    nodes = FitNodes()                  # the fits' nodes, for phase 8a
+    nodes.label = "3"
+
     def run(timings=None):
         with contextlib.redirect_stdout(io.StringIO()) as out:
             r = api.align_from_pcm(v, a, device=device, timings=timings)
@@ -1421,7 +1925,8 @@ def main():
     want = {"fine_match": runs * n_chunks * matching.N_TRACKS,
             "dp_forward": runs * matching.N_TRACKS,
             "dp_backtrace": runs * matching.N_TRACKS,
-            "pcm_frontend": 0, "polyphase_blur": 0}
+            "pcm_frontend": 0, "polyphase_blur": 0,
+            "fused_lasso_admm": 0, "pv_phase_lock": 0}
     if launches != want:
         raise AssertionError(f"the kernels launched {launches} in 3 runs, "
                              f"expected {want}")
@@ -1466,22 +1971,32 @@ def main():
     t_phase = phase_done(4, t_phase, smi)
 
     # --- phase 5: a feature film through the streamed coarse DP -----------
+    nodes.label = "5"
     film_launches, film_rows, film_dp = phase_film(device, smi)
     t_phase = phase_done(5, t_phase, smi)
 
     # --- phase 6: the batch of 8 -------------------------------------------
+    nodes.label = "6"
     batch_launches, batch = phase_batch(device, smi)
     t_phase = phase_done(6, t_phase, smi)
 
     # --- phase 7: the device-feature path -----------------------------------
+    nodes.label = "7"
     feat = phase_feature_kernels(
         [(label, api._pad_pcm_i16(pcm), pcm.shape[1])
          for label, pcm in (("audio", a), ("video", v))], smi)
     dev_rows, dev_dp = phase_device_kernels(v, a, device, smi)
     dev_launches, dev_batch_launches, _ = phase_device_features(
         v, a, split, batch, smi)
+    t_phase = phase_done(7, t_phase, smi)
+
+    # --- phase 8: the output side: device fit, device PV and resampler ----
+    fit_launches, fit_rows = phase_fit_device(v, a, nodes, smi)
+    rate_pair = batch[0][batch[3].index("rate")]
     del v, a, batch
-    phase_done(7, t_phase, smi)
+    pv_launches, pv_rec, cli8_launches = phase_stretch(rate_pair, smi)
+    del rate_pair
+    phase_done(8, t_phase, smi)
 
     def by_phase(kernel):
         return {"3 align_from_pcm, 3 runs": launches[kernel],
@@ -1491,7 +2006,12 @@ def main():
                 "7b align_from_pcm(features='device'), 3 runs":
                     dev_launches[kernel],
                 "7c batch of 8 (features='device'), warm call":
-                    dev_batch_launches[kernel]}
+                    dev_batch_launches[kernel],
+                "8a align_from_pcm(fit_backend='device')":
+                    fit_launches[kernel],
+                "8c combine(stretcher='pv', pv_backend='device')":
+                    pv_launches[kernel],
+                "8c CLI --fit_backend device": cli8_launches[kernel]}
 
     def feature_record(kernel, line):
         # times and bounds per pair: the sum over its two streams
@@ -1561,6 +2081,66 @@ def main():
                                         / 1e3)
         return record
 
+    def fit_record():
+        # per call on the bench pair's two stage problems (their mean); the
+        # film's beside; both bounds: bytes / fp32 operations, and the
+        # solve's barrier steps on an empty CTA of the same shape
+        bench = {k: float(np.mean([fit_rows[f"bench pair stage {s}"][k]
+                                   for s in (1, 2)]))
+                 for k in ("ms", "plain_ms", "bytes_ms", "ops_ms",
+                           "floor_ms")}
+        film = {k: float(np.mean([fit_rows[f"film stage {s}"][k]
+                                  for s in (1, 2)]))
+                for k in ("ms", "plain_ms", "floor_ms")}
+        bound = max(bench["bytes_ms"], bench["ops_ms"])
+        return {"name": "fused_lasso_admm",
+                "route": "cuda",
+                "source": "describealign_tpu_torch/csrc/fit_admm.cu",
+                "replaces": "describealign_tpu/alignment/fit_device.py:86",
+                "launches": fit_launches["fused_lasso_admm"],
+                "launches_by_phase": by_phase("fused_lasso_admm"),
+                "max_abs_err": max(r["err"] for r in fit_rows.values()),
+                "ms": bench["ms"],
+                "plain_ms": bench["plain_ms"],
+                "bound_ms": bound,
+                "bound_by": ("operations" if bench["ops_ms"]
+                             >= bench["bytes_ms"] else "bytes"),
+                "bound_share": bound / bench["ms"],
+                "barrier_floor_ms": bench["floor_ms"],
+                "barrier_floor_share": bench["floor_ms"] / bench["ms"],
+                "n_pad": fit_rows["bench pair stage 1"]["n_pad"],
+                "film_n_pad": fit_rows["film stage 1"]["n_pad"],
+                "film_ms": film["ms"],
+                "film_plain_ms": film["plain_ms"],
+                "film_barrier_floor_ms": film["floor_ms"],
+                "library_ms": None}
+
+    def pv_record():
+        # per call on the path's block (8,192 frames, stereo); the whole
+        # segment in one launch beside
+        bound = max(pv_rec["bytes_ms"], pv_rec["ops_ms"])
+        return {"name": "pv_phase_lock",
+                "route": "cuda",
+                "source": "describealign_tpu_torch/csrc/pv_lock.cu",
+                "replaces": "describealign_tpu/stretch/phase_vocoder.py:60",
+                "launches": pv_launches["pv_phase_lock"],
+                "launches_by_phase": by_phase("pv_phase_lock"),
+                "max_abs_err": pv_rec["err"],
+                "ms": pv_rec["ms"],
+                "plain_ms": pv_rec["plain_ms"],
+                "bound_ms": bound,
+                "bound_by": ("operations" if pv_rec["ops_ms"]
+                             >= pv_rec["bytes_ms"] else "bytes"),
+                "bound_share": bound / pv_rec["ms"],
+                "frames": pv_rec["frames"],
+                "empty_steps_ms": pv_rec["floor_ms"],
+                "segment_frames": pv_rec["segment_frames"],
+                "segment_ms": pv_rec["segment_ms"],
+                "segment_bound_ms": pv_rec["segment_bound_ms"],
+                "segment_empty_steps_ms": pv_rec["segment_floor_ms"],
+                "segment_vs_host_rel": pv_rec["segment_vs_host"],
+                "library_ms": None}
+
     chunk0 = [r for r in rows if r[0] == 0]
     film0 = [r for r in film_rows if r[0] == 0]
     k_ms = float(np.mean([r[4] for r in chunk0]))
@@ -1596,7 +2176,8 @@ def main():
         "library_ms": None,
     }, dp_record("dp_forward", 225), dp_record("dp_backtrace", 241),
         feature_record("pcm_frontend", 51),
-        feature_record("polyphase_blur", 85)]}))
+        feature_record("polyphase_blur", 85), fit_record(),
+        pv_record()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -315,7 +315,7 @@ def _host_stages_from_path(y, x, feats_a_np, feats_v_np, na, nv,
     stands. quiet: print no progress line (the batch path's threads)."""
     try:
         r = _host_stages_from_path_inner(y, x, feats_a_np, feats_v_np,
-                                         na, nv, fit_backend, quiet)
+                                         na, nv, fit_backend, quiet, device)
     except RuntimeError:
         # the reference's "Alignment failed" path-length raise
         if margin is not None:
@@ -358,7 +358,7 @@ def _coarse_retry(feats_a_np, feats_v_np, na, nv, fit_backend, margin,
         return None
     try:
         r = _host_stages_from_path_inner(y, x, feats_a_np, feats_v_np,
-                                         na, nv, fit_backend, quiet)
+                                         na, nv, fit_backend, quiet, device)
     except (RuntimeError, ValueError):
         return None
     return r + (m_r,)
@@ -587,9 +587,11 @@ def _rescale_native(feats_a_np, feats_v_np, na, nv, xi, yi):
 
 
 def _host_stages_from_path_inner(y, x, feats_a_np, feats_v_np, na, nv,
-                                 fit_backend, quiet=False):
+                                 fit_backend, quiet=False, device='cuda'):
     """Filter -> rescale -> compress -> fit -> pass 2 -> outputs
-    (api.py:1220-1286)."""
+    (api.py:1220-1286). device: where fit_backend='device' runs its ADMM
+    (the matcher's device; pool threads of the batch path launch there
+    too)."""
     _fail_if_short(len(x), nv, na)
 
     if not quiet:
@@ -604,7 +606,8 @@ def _host_stages_from_path_inner(y, x, feats_a_np, feats_v_np, na, nv,
         np.ascontiguousarray(feats_v_np, np.float32), na, nv, xi, yi)
 
     cx, cy = continuity.compress_path(x, y)
-    fit_result = fit.solve_l1_fit(cx, cy, backend=fit_backend)
+    fit_result = fit.solve_l1_fit(cx, cy, backend=fit_backend,
+                                  device=device)
     smooth_path = list(zip(cx, fit_result['smooth_y']))
 
     if not quiet:

@@ -1,11 +1,15 @@
 """L1-minimization piecewise-linear alignment fit (host).
 
 Jax-free twin of describealign_tpu/alignment/fit.py (reference
-describealign.py:769-858; see that module for the model). Backends:
-- 'native' (default): the cascaded exact fused-lasso solve of fit_tv.py
-  through the native clipped-derivative DP;
-- 'highs': the reference's exact LP via scipy.optimize.linprog.
-The JAX package's 'device' (ADMM) backend is not ported.
+describealign.py:769-858; see that module for the model). Backends of
+solve_l1_fit, with the JAX package's default ('highs'; the alignment
+entry points pass their own, 'native'):
+- 'highs': the reference's exact LP via scipy.optimize.linprog;
+- 'native' (alias 'tv'): the cascaded exact fused-lasso solve of
+  fit_tv.py through the native clipped-derivative DP;
+- 'device': the ADMM fit of fit_device.py on `device` (the hand-written
+  kernel on CUDA), guarded: a result that did not converge falls back to
+  'native' with the JAX package's WARNING line.
 
 Outputs: fit_err (N), slopes (N-1), median_slope, smooth_y = y - fit_err.
 """
@@ -57,15 +61,29 @@ def l1_refine_segment_slopes(x, y, seg_id, slopes, iters=25):
     return out
 
 
-def solve_l1_fit(x, y, backend='native'):
+def solve_l1_fit(x, y, backend='highs', device='cuda'):
     """Fit the piecewise-linear model. x, y: compressed, deduped match
-    nodes (float64, len >= 3). Returns dict(fit_err, slopes, median_slope,
-    smooth_y)."""
+    nodes (float64, len >= 3). device: where the 'device' backend's ADMM
+    runs. Returns dict(fit_err, slopes, median_slope, smooth_y)."""
     x = np.asarray(x, np.float64)
     y = np.asarray(y, np.float64)
     if backend == 'highs':
         return _solve_linprog(x, y)
-    if backend == 'native':
+    elif backend in ('native', 'tv'):
+        from .fit_tv import solve_l1_fit_tv
+        return solve_l1_fit_tv(x, y)
+    elif backend == 'device':
+        # ADMM is iterative: guard the result and fall back to the exact
+        # host cascade on non-convergence (mirrors the reference LP's
+        # dual-simplex -> interior-point fallback, describealign.py:841-844)
+        from .fit_device import solve_l1_fit_device
+        result = solve_l1_fit_device(x, y, device=device)
+        ok = (np.isfinite(result['smooth_y']).all()
+              and np.isfinite(result['slopes']).all()
+              and np.median(np.abs(result['fit_err'])) < 50.0)
+        if ok:
+            return result
+        print("  WARNING: device fit did not converge, using native...")
         from .fit_tv import solve_l1_fit_tv
         return solve_l1_fit_tv(x, y)
     raise ValueError(f"unknown fit backend: {backend}")

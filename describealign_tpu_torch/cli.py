@@ -3,10 +3,11 @@
   describealign-tpu-torch video.mp4 audio.mp3 [--stretch_audio] [--yes]
       [--prepend ad_] [--no_pitch_correction] [--output_dir D]
       [--alignment_dir D] [--install-ffmpeg] [--version] [--warmup MIN]
-      [--fit_backend native|highs]
+      [--fit_backend native|device|highs]
 
 The matcher runs on the GPU (CUDA): there is no device flag, and without
-CUDA the run fails with an error naming it. The port has no GUI, so with
+CUDA the run fails with an error naming it. --fit_backend device runs the
+fit's ADMM on the same GPU. The port has no GUI, so with
 no arguments it prints the JAX package's "Can't launch GUI" message and the
 usage.
 """
@@ -58,16 +59,18 @@ def command_line_interface(argv=None):
     parser.add_argument('--version', action='store_true',
                         help='Checks and prints the installed version.')
     parser.add_argument('--warmup', type=float, default=None, metavar='MIN',
-                        help='Build the CUDA kernel and the host library and '
-                             'exit. MIN is accepted for compatibility and not '
-                             'used: the port has no compile cache per media '
-                             'length, and the builds are cached under build/.')
+                        help='Build the CUDA kernels and the host library '
+                             'and exit. MIN is accepted for compatibility '
+                             'and not used: the port has no compile cache '
+                             'per media length, and the builds are cached '
+                             'under build/.')
     parser.add_argument('--fit_backend', default=None,
                         choices=['native', 'device', 'highs'],
                         help='Piecewise-linear fit solver: "native" (exact '
-                             'host fused-lasso cascade, default) or "highs" '
-                             '(scipy LP cross-check). "device" (the JAX '
-                             "package's on-device ADMM) is not ported.")
+                             'host fused-lasso cascade, default), "device" '
+                             '(ADMM on the GPU, falling back to native if '
+                             'it does not converge) or "highs" (scipy LP '
+                             'cross-check).')
     args = parser.parse_args(argv[1:])
 
     if args.version:
@@ -78,15 +81,16 @@ def command_line_interface(argv=None):
         os.chmod(get_ffprobe(), 0o755)
     elif args.warmup is not None:
         from .alignment.native import native_lib
-        from .ops.fine_kernel import load_library
-        load_library()
-        native_lib()
-        print("built the CUDA kernel and the host library.")
+        from .ops import (coarse_dp, features_kernel, fine_kernel,
+                          fit_kernel, pv_kernel)
+        for build in (fine_kernel.load_library, coarse_dp.load_library,
+                      features_kernel.load_library, fit_kernel.load_library,
+                      pv_kernel.load_library, native_lib):
+            build()
+        print("built the CUDA kernels (fine_match.cu, coarse_dp.cu, "
+              "features_dev.cu, fit_admm.cu, pv_lock.cu) and the host "
+              "library (dp.cpp, features.cpp).")
     elif args.video and args.audio:
-        if args.fit_backend == 'device':
-            raise SystemExit("--fit_backend device is not ported to "
-                             "describealign_tpu_torch (ROADMAP A13); use "
-                             "native or highs")
         from . import pipeline
         from .alignment import api
         # the JAX CLI passes the backend through DESCRIBEALIGN_FIT_BACKEND;

@@ -150,14 +150,19 @@ class _BatchAligner:
 def combine(video, audio, stretch_audio=False, yes=False, prepend="ad_",
             no_pitch_correction=False, output_dir=DEFAULT_OUTPUT_DIR,
             alignment_dir=DEFAULT_ALIGNMENT_DIR, device='cuda',
-            features='host'):
+            features='host', stretcher='wsola', pv_backend='host',
+            resample_backend='host'):
     """Combine videos with matching audio description files.
 
     Same public behavior as the JAX package's combine() and the reference's
     documented module API (reference README.md:136-140); device is where
     the matcher runs; features is where the features are extracted
     ('host' or 'device', see alignment.api.align_from_pcm; the JAX package
-    reads DESCRIBEALIGN_FEATURES).
+    reads DESCRIBEALIGN_FEATURES). In stretch mode, stretcher ('wsola' or
+    'pv'), pv_backend and resample_backend ('host' or 'device', on
+    `device`) choose the stretch backends (stretch.segments; the JAX
+    package reads DESCRIBEALIGN_STRETCH, DESCRIBEALIGN_PV and
+    DESCRIBEALIGN_RESAMPLE), with the JAX package's defaults.
     """
     from . import __version__
     from .alignment.api import (_feature_path, _pad_pcm_i16,
@@ -169,10 +174,11 @@ def combine(video, audio, stretch_audio=False, yes=False, prepend="ad_",
                             write_replaced_media_to_disk)
     from .media.probe import get_closest_key_frame_time
     from .report.plots import plot_alignment
-    from .stretch.segments import replace_aligned_segments
+    from .stretch.segments import check_backends, replace_aligned_segments
 
     device = _require_device(device)
     _feature_path(features)
+    check_backends(stretcher, pv_backend, resample_backend)
 
     video_files, has_audio_extensions = get_sorted_filenames(
         video, VIDEO_EXTENSIONS, AUDIO_EXTENSIONS)
@@ -368,7 +374,9 @@ def combine(video, audio, stretch_audio=False, yes=False, prepend="ad_",
 
                 replace_aligned_segments(video_arr, audio_desc_arr,
                                          audio_desc_times, video_times,
-                                         no_pitch_correction)
+                                         no_pitch_correction, stretcher,
+                                         pv_backend, resample_backend,
+                                         device)
                 del audio_desc_arr
                 video_arr *= (2 ** 15 - 2.) / np.max(np.abs(video_arr))
 

@@ -279,3 +279,101 @@ def test_device_features_batch_matches_single_on_card(cuda_device):
         cpu = api.align_from_pcm(v, a, features='device', device='cpu')
         assert np.max(np.abs(np.interp(cpu[0], got[0], got[1])
                              - cpu[1])) <= 0.010
+
+
+def _fit_problems(n_pad, sizes, seed):
+    """(b, c, kappa, rho1, rho2) f32 numpy batches of fit problems with
+    `sizes` real nodes padded to n_pad, prepared as alignment/fit_device.py
+    prepares them (a slope problem with a few rate changes and outliers)."""
+    from describealign_tpu_torch.alignment import fit_device as fd
+    rng = np.random.default_rng(seed)
+    preps = []
+    for n in sizes:
+        x = np.cumsum(rng.integers(1, 40, n + 1)).astype(np.float64)
+        slope = np.where(np.arange(n + 1) < n // 2, 1.0, 1.02)
+        y = np.cumsum(np.concatenate([[300.0], np.diff(x) * slope[1:]]))
+        y += rng.normal(0, 0.6, n + 1)
+        xd = np.diff(x)
+        r = np.diff(y) / xd
+        preps.append(fd._prep_problem(r, np.minimum(2.0, 10.0) * xd,
+                                      np.full(max(n - 1, 1), 4e4), n_pad))
+    return [np.stack([np.asarray(p[i], np.float64) for p in preps])
+            .astype(np.float32) for i in range(5)]
+
+
+def test_fit_admm_kernel_matches_plain_on_card(cuda_device):
+    """fused_lasso_admm (csrc/fit_admm.cu) against its plain version on
+    the same CUDA tensors: t and z bit-equal, signed zeros included, one
+    launch per call; n_pad 16 with 3-4 real nodes, 512, 4096 (the largest
+    with the state in shared memory) and 8192 (global scratch), batches of
+    one and three."""
+    from describealign_tpu_torch.ops import fit_kernel as fk
+    for n_pad, sizes in ((16, (3, 4)), (512, (400,)), (4096, (4000, 2500,
+                                                               3000)),
+                         (8192, (5761,))):
+        args = [torch.from_numpy(a).to(cuda_device)
+                for a in _fit_problems(n_pad, sizes, n_pad)]
+        before = fk.fused_lasso_admm.launches
+        t, z = fk.fused_lasso_admm(*args)
+        torch.cuda.synchronize()
+        assert fk.fused_lasso_admm.launches == before + 1
+        tp, zp = fk.fused_lasso_admm_plain(*args)
+        assert torch.equal(t, tp), n_pad
+        assert torch.equal(z, zp), n_pad
+        assert torch.equal(torch.signbit(z), torch.signbit(zp))
+        assert bool((z != 0).any()) and bool((z == 0).any())
+
+
+def test_pv_lock_kernel_matches_plain_on_card(cuda_device):
+    """pv_phase_lock (csrc/pv_lock.cu) against its plain version on the
+    same CUDA spectra: bit-equal output and carry, one launch per call;
+    stereo noise spectra as one block and walked in blocks with the
+    carry, and integer spectra whose magnitudes tie."""
+    from describealign_tpu_torch.ops import pv_kernel as pk
+    rng = np.random.default_rng(9)
+    omega = torch.from_numpy((2 * np.pi * np.arange(pk.BINS) * 256 / 1024)
+                             .astype(np.float32)).to(cuda_device)
+    for ties in (False, True):
+        re = rng.standard_normal((2, 600, pk.BINS)) * 3e4
+        im = rng.standard_normal((2, 600, pk.BINS)) * 3e4
+        if ties:
+            re, im = np.round(re / 3e4), np.round(im / 3e4)
+        spec = torch.from_numpy((re + 1j * im).astype(np.complex64)).to(
+            cuda_device)
+        for rate in (1.03, 1 / 0.97):
+            want, carry_w = pk.pv_phase_lock_plain(spec, omega,
+                                                   float(np.float32(rate)))
+            before = pk.pv_phase_lock.launches
+            got, carry = pk.pv_phase_lock(spec, omega, rate)
+            torch.cuda.synchronize()
+            assert pk.pv_phase_lock.launches == before + 1
+            assert torch.equal(got, want) and torch.equal(carry, carry_w)
+            parts, carry = [], None
+            for k0 in range(0, 600, 250):
+                out, carry = pk.pv_phase_lock(
+                    spec[:, k0:k0 + 250].contiguous(), omega, rate, carry)
+                parts.append(out)
+            assert torch.equal(torch.cat(parts, 1), want)
+            assert torch.equal(carry, carry_w)
+
+
+def test_device_stretch_on_card(cuda_device):
+    """The device phase vocoder and resampler on the card against the same
+    functions on the CPU (plain versions): cuFFT and the CPU's FFT differ
+    by rounding, so within the CPU tests' bars against JAX."""
+    from describealign_tpu_torch.stretch import phase_vocoder as pv
+    from describealign_tpu_torch.stretch import resample as rs
+    rng = np.random.default_rng(2)
+    sig = (rng.standard_normal((2, 44100 * 4)) * 3000).astype(np.float32)
+    num_out = int(sig.shape[1] * 0.97)
+    gpu = pv.pv_stretch(sig, num_out, backend="device", device=cuda_device)
+    cpu = pv.pv_stretch(sig, num_out, backend="device", device="cpu")
+    rms = np.sqrt(np.mean((gpu - cpu) ** 2)) / np.sqrt(np.mean(cpu ** 2))
+    assert gpu.shape == (2, num_out) and rms < 5e-3
+    g = rs.resample_segment(sig, 5.0, sig.shape[1], num_out,
+                            backend="device", device=cuda_device)
+    c = rs.resample_segment(sig, 5.0, sig.shape[1], num_out,
+                            backend="device", device="cpu")
+    step = np.spacing(np.maximum(np.maximum(np.abs(g), np.abs(c)),
+                                 1.0).astype(np.float16)).astype(np.float32)
+    assert (np.abs(g - c) <= step).all()

@@ -2,8 +2,9 @@
 sortedcontainers, matplotlib or platformdirs, and the port imports nothing
 of the JAX package. A subprocess blocks those modules and the JAX package
 and runs the port's align_from_pcm (both feature paths), features_for,
-the batch, then combine() and the CLI's --version, on a small pair on the
-CPU.
+the batch, the device fit, phase vocoder and resampler, then combine()
+(with the device stretch backends) and the CLI's --version, on a small
+pair on the CPU.
 chip_smoke.py imports only the port, torch and numpy."""
 import ast
 import os
@@ -55,6 +56,24 @@ for r in both:
 assert len(BATCH_SPECS) == 8
 assert coarse_dp.dp_forward.launches == coarse_dp.dp_backtrace.launches == 0
 
+# the output side's device backends (their plain versions on the CPU)
+from describealign_tpu_torch.alignment.fit import solve_l1_fit
+from describealign_tpu_torch.ops import fit_kernel, pv_kernel
+from describealign_tpu_torch.stretch.phase_vocoder import pv_stretch
+from describealign_tpu_torch.stretch.resample import resample_segment
+xs = np.cumsum(np.full(40, 100.0))
+fit = solve_l1_fit(xs, xs * 1.01 + 5.0, backend="device", device="cpu")
+assert abs(fit["median_slope"] - 1.01) < 1e-3, fit["median_slope"]
+seg = np.random.default_rng(0).standard_normal((2, 88200)).astype(
+    np.float32) * 1000
+for backend in ("host", "device"):
+    assert pv_stretch(seg, 90000, backend=backend,
+                      device="cpu").shape == (2, 90000)
+    assert resample_segment(seg, 0, 88200, 90000, backend=backend,
+                            device="cpu").shape == (2, 90000)
+assert fit_kernel.fused_lasso_admm.launches == 0
+assert pv_kernel.pv_phase_lock.launches == 0
+
 # combine() in stretch mode on a WAV pair: the .txt report, no .png, and
 # one WARNING line naming matplotlib; then the CLI's --version
 import contextlib, io, os, tempfile
@@ -67,7 +86,8 @@ write_wav(os.path.join(tmp, "desc.wav"), np.tile(a, (2, 1)))
 with contextlib.redirect_stdout(io.StringIO()) as buf:
     combine([os.path.join(tmp, "film.wav")], [os.path.join(tmp, "desc.wav")],
             stretch_audio=True, yes=True, output_dir=os.path.join(tmp, "o"),
-            alignment_dir=os.path.join(tmp, "p"), device="cpu")
+            alignment_dir=os.path.join(tmp, "p"), device="cpu",
+            stretcher="pv", pv_backend="device", resample_backend="device")
     command_line_interface(["--version"])
 printed = buf.getvalue()
 warned = [ln for ln in printed.splitlines()

@@ -435,9 +435,9 @@ def test_cli_fit_backend_highs(wav_pair, tmp_path, monkeypatch):
     seen = []
     real = tfit.solve_l1_fit
 
-    def spy(x, y, backend='native'):
+    def spy(x, y, backend='highs', device='cuda'):
         seen.append(backend)
-        return real(x, y, backend=backend)
+        return real(x, y, backend=backend, device=device)
 
     monkeypatch.setattr(tfit, "solve_l1_fit", spy)
     tcli.command_line_interface(list(wav_pair) + [
@@ -449,11 +449,29 @@ def test_cli_fit_backend_highs(wav_pair, tmp_path, monkeypatch):
     assert os.path.exists(tmp_path / "p" / "episode_1.txt")
 
 
-def test_cli_fit_backend_device_names_the_roadmap(wav_pair, tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP A13"):
-        tcli.command_line_interface(list(wav_pair) + [
-            "--stretch_audio", "--yes", "--fit_backend", "device",
-            "--output_dir", str(tmp_path)])
+def test_cli_fit_backend_device_names_the_roadmap(wav_pair, tmp_path,
+                                                  monkeypatch, capsys):
+    """--fit_backend device is accepted (it exited naming ROADMAP A13
+    before the device fit was ported): the fit runs the ADMM on the
+    matcher's device, here the CPU's plain version, and converges."""
+    from describealign_tpu_torch.alignment import fit as tfit
+    _on_cpu(monkeypatch)
+    seen = []
+    real = tfit.solve_l1_fit
+
+    def spy(x, y, backend='highs', device='cuda'):
+        seen.append((backend, str(device)))
+        return real(x, y, backend=backend, device=device)
+
+    monkeypatch.setattr(tfit, "solve_l1_fit", spy)
+    tcli.command_line_interface(list(wav_pair) + [
+        "--stretch_audio", "--yes", "--fit_backend", "device",
+        "--output_dir", str(tmp_path / "o"), "--alignment_dir",
+        str(tmp_path / "p")])
+    assert seen and set(seen) == {("device", "cpu")}
+    assert "WARNING: device fit" not in capsys.readouterr().out
+    assert tapi.DEFAULT_FIT_BACKEND == "native"
+    assert os.path.exists(tmp_path / "p" / "episode_1.txt")
 
 
 def test_cli_warmup_builds_or_names_nvcc(capsys):
