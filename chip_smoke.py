@@ -93,16 +93,20 @@ Needs one CUDA device and nvcc; exits non-zero without them. Phases:
    within 10 ms, similarity within 0.5, slope within 1e-4, no fallback
    WARNING, two ADMM launches); fused_lasso_admm (csrc/fit_admm.cu)
    against its plain version on the fit's four problems (both stages on
-   the bench pair's and the film's compressed nodes): t and z bit-equal,
-   CUDA-event times beside the bytes and fp32 bounds and the solve's
-   barrier steps on an empty CTA; the batch of 8's node sets through
-   solve_l1_fit_device_batched equal to the per-problem calls; (b)
-   pv_phase_lock (csrc/pv_lock.cu) on the rate pair's first stretched
-   segment (stereo spectra on the card): bit-equal to its plain version
-   on the path's first 8,192-frame block, the whole segment in one launch
-   against the host library's recurrence on the same magnitudes, phases
-   and increments, times beside the bytes bound and the frames' empty
-   steps; (c) the rate pair as stereo WAVs through combine() with the
+   the bench pair's and the film's compressed nodes, n_pad 8,192 and
+   16,384): t and z bit-equal, CUDA-event times beside the bytes and fp32
+   bounds and the floor (the solve's CTA barriers on an empty CTA plus its
+   warp steps on an empty warp), the arrays in shared memory (the
+   library's count checked against fit_kernel.shared_slots); the batch of
+   8's node sets through solve_l1_fit_device_batched equal to the
+   per-problem calls; (b) pv_phase_lock (csrc/pv_lock.cu: prologue, walk,
+   epilogue) on the rate pair's first stretched segment (stereo spectra
+   on the card): bit-equal to its plain version on the path's first
+   8,192-frame block, the whole segment in one call against the host
+   library's recurrence on the same magnitudes, phases and increments;
+   per block and per segment the CUDA-event time of the call and of each
+   pass alone beside the bytes it moves as built, the function's bytes
+   bound and an empty walk of the same frames; (c) the rate pair as stereo WAVs through combine() with the
    device PV (counted), the device and host resamplers
    (no_pitch_correction), and - cut to the video's first 240 s, the host
    references being slower - the host PV, the device PV and WSOLA: each
@@ -1435,23 +1439,29 @@ def admm_vs_plain(label, problem, smi):
     nbytes, flops = fk.fit_admm_work(n_pad)
     bytes_ms = nbytes / HBM_BYTES_S * 1e3
     ops_ms = flops / FP32_FLOPS * 1e3
-    steps = fk.steps_per_solve(n_pad)
-    floor_ms = fk.empty_steps_ms(steps, n_pad)
-    where = "shared" if n_pad <= fk.SHARED_MAX_N else "global scratch"
-    print(f"[8a fit kernel vs plain] {label}: n {n}, n_pad {n_pad} (state "
-          f"in {where}), {int((z != 0).sum())} breaks: t and z "
+    # the floor: the solve's CTA barriers on an empty CTA of the kernel's
+    # threads plus its warp steps on an empty warp
+    barriers, warp_steps = fk.steps_per_solve(n_pad)
+    cta_ms = fk.empty_steps_ms(barriers, n_pad)
+    warp_ms = fk.empty_warp_steps_ms(warp_steps)
+    floor_ms = cta_ms + warp_ms
+    shared = sorted(set(fk.shared_slots(n_pad)), key=fk.SLOTS.index)
+    print(f"[8a fit kernel vs plain] {label}: n {n}, n_pad {n_pad} (in "
+          f"shared memory {', '.join(shared) or 'nothing'}, the rest in "
+          f"the global scratch), {int((z != 0).sum())} breaks: t and z "
           f"{'bit-equal' if equal else 'DIFFER'} (max |t - plain| {err:.3g},"
           f" {flips} break flips) | kernel {ms:.3f} ms, plain {plain_ms:.1f}"
           f" ms | bounds: bytes {bytes_ms:.5f} ms at 3.35 TB/s, fp32 "
-          f"{ops_ms:.4f} ms at 67 TFLOP/s, {steps} barrier steps of an "
-          f"empty CTA {floor_ms:.3f} ms ({floor_ms / ms:.1%} of the "
-          f"kernel) ({smi})", flush=True)
+          f"{ops_ms:.4f} ms at 67 TFLOP/s; floor: {barriers} CTA barriers "
+          f"of an empty CTA {cta_ms:.3f} ms + {warp_steps} steps of an "
+          f"empty warp {warp_ms:.3f} ms = {floor_ms:.3f} ms "
+          f"({floor_ms / ms:.1%} of the kernel) ({smi})", flush=True)
     if not equal:
         raise AssertionError(f"fused_lasso_admm differs from its plain "
                              f"version on {label}")
     return {"n": n, "n_pad": n_pad, "ms": ms, "plain_ms": plain_ms,
             "bytes_ms": bytes_ms, "ops_ms": ops_ms, "floor_ms": floor_ms,
-            "err": err}
+            "barriers": barriers, "warp_steps": warp_steps, "err": err}
 
 
 def phase_fit_device(v, a, nodes, smi):
@@ -1501,6 +1511,15 @@ def phase_fit_device(v, a, nodes, smi):
     if not all(checks.values()):
         raise AssertionError(f"the device fit disagrees with JAX: {checks}")
 
+    from describealign_tpu_torch.ops import fit_kernel as fk
+    lib = fk.load_library()
+    for n_pad in (16, 4096, 8192, 16384, 32768):
+        if lib.fit_admm_shared_slots(n_pad) != len(fk.shared_slots(n_pad)):
+            raise AssertionError(f"csrc/fit_admm.cu keeps "
+                                 f"{lib.fit_admm_shared_slots(n_pad)} slots "
+                                 f"in shared memory at n_pad {n_pad}, "
+                                 f"fit_kernel.shared_slots says "
+                                 f"{len(fk.shared_slots(n_pad))}")
     rows = {}
     for label, (nx, ny) in (("bench pair", bench_nodes),
                             ("film", nodes.of("5")[-1])):
@@ -1567,12 +1586,16 @@ def phase_pv_kernel(seg, num_out, smi):
     equal = torch.equal(out_k, out_p) and torch.equal(carry_k, carry_p)
     err = float(torch.max(torch.abs(out_k - out_p)))
     ms = cuda_ms(lambda: pk.pv_phase_lock(blk, omega, rate32))
+    passes = pk.pass_ms(blk, omega, rate32, reps=REPS)
     nbytes, flops = pk.pv_lock_work(c, blk.shape[1])
     bytes_ms, ops_ms = nbytes / HBM_BYTES_S * 1e3, flops / FP32_FLOPS * 1e3
+    pass_bytes_ms = {k: v / HBM_BYTES_S * 1e3
+                     for k, v in pk.pv_pass_bytes(c, blk.shape[1]).items()}
     floor_blk = pk.empty_steps_ms(blk.shape[1], c)
 
-    # the whole segment in one launch, against the host recurrence
+    # the whole segment in one call, against the host recurrence
     seg_ms = cuda_ms(lambda: pk.pv_phase_lock(spec, omega, rate32), reps=2)
+    seg_passes = pk.pass_ms(spec, omega, rate32, reps=2)
     out_seg, _ = pk.pv_phase_lock(spec, omega, rate32)
     rate_t = torch.tensor(float(rate32), device="cuda")
     two_pi = torch.tensor(pk.TWO_PI, device="cuda")
@@ -1594,27 +1617,42 @@ def phase_pv_kernel(seg, num_out, smi):
     seg_err = float(torch.max(torch.abs(out_seg - out_h)) / torch.max(mag))
     seg_bytes, seg_flops = pk.pv_lock_work(c, f)
     seg_bound = max(seg_bytes / HBM_BYTES_S, seg_flops / FP32_FLOPS) * 1e3
+    seg_pass_ms = {k: v / HBM_BYTES_S * 1e3
+                   for k, v in pk.pv_pass_bytes(c, f).items()}
     seg_floor = pk.empty_steps_ms(f, c)
+
+    def shares(dev, built):
+        return ", ".join(f"{k} {dev[k]:.4f} ms (its bytes {built[k]:.4f} ms, "
+                         f"{built[k] / dev[k]:.1%})" for k in pk.PASSES)
     print(f"[8b PV kernel vs plain] rate pair's first stretched segment "
           f"({c} channels, {seg.shape[1]} -> {num_out} samples, {f} frames,"
           f" rate {float(rate32):.6f}): first {blk.shape[1]} frames "
           f"{'bit-equal' if equal else 'DIFFER'} (max |out - plain| "
-          f"{err:.3g}); kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bounds "
-          f"bytes {bytes_ms:.4f} / fp32 {ops_ms:.4f} ms, {blk.shape[1]} "
-          f"empty frame steps {floor_blk:.3f} ms | whole segment in one "
-          f"launch {seg_ms:.2f} ms ({seg_ms / f * 1e3:.3f} us per frame) "
-          f"against {f} empty frame steps {seg_floor:.2f} ms and the bound "
-          f"{seg_bound:.3f} ms; vs the host library's recurrence "
-          f"({host_s:.2f} s): {'bit-equal' if seg_equal else 'differs'}, "
-          f"max |diff| {seg_err:.3g} of the peak magnitude ({smi})",
+          f"{err:.3g}); kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+          f"{max(bytes_ms, ops_ms):.4f} ms (the function's bytes; "
+          f"{max(bytes_ms, ops_ms) / ms:.1%}) | per pass: "
+          f"{shares(passes, pass_bytes_ms)}; the walk's floor, an empty walk of "
+          f"{blk.shape[1]} frames, {floor_blk:.3f} ms "
+          f"({floor_blk / passes['walk']:.1%} of the walk) ({smi})",
           flush=True)
+    print(f"[8b PV segment] the whole segment in one call {seg_ms:.2f} ms "
+          f"({seg_ms / f * 1e3:.4f} us per frame), bound {seg_bound:.3f} ms "
+          f"(the function's bytes; {seg_bound / seg_ms:.1%}), the passes' "
+          f"bytes as built {sum(seg_pass_ms.values()):.3f} ms | per pass: "
+          f"{shares(seg_passes, seg_pass_ms)}; an empty walk of "
+          f"{f} frames {seg_floor:.2f} ms ({seg_floor / seg_passes['walk']:.1%}"
+          f" of the walk) | vs the host library's recurrence ({host_s:.2f} "
+          f"s): {'bit-equal' if seg_equal else 'differs'}, max |diff| "
+          f"{seg_err:.3g} of the peak magnitude ({smi})", flush=True)
     if not equal or seg_err > PV_HOST_REL:
         raise AssertionError("pv_phase_lock differs from its plain version "
                              "or from the host recurrence")
     return {"ms": ms, "plain_ms": plain_ms, "bytes_ms": bytes_ms,
             "ops_ms": ops_ms, "floor_ms": floor_blk, "err": err,
-            "frames": blk.shape[1], "segment_frames": f,
+            "frames": blk.shape[1], "passes_ms": passes,
+            "passes_bytes_ms": pass_bytes_ms, "segment_frames": f,
             "segment_ms": seg_ms, "segment_bound_ms": seg_bound,
+            "segment_passes_ms": seg_passes,
             "segment_floor_ms": seg_floor, "segment_vs_host": seg_err}
 
 
@@ -2108,6 +2146,8 @@ def main():
                 "bound_share": bound / bench["ms"],
                 "barrier_floor_ms": bench["floor_ms"],
                 "barrier_floor_share": bench["floor_ms"] / bench["ms"],
+                "barriers": fit_rows["bench pair stage 1"]["barriers"],
+                "warp_steps": fit_rows["bench pair stage 1"]["warp_steps"],
                 "n_pad": fit_rows["bench pair stage 1"]["n_pad"],
                 "film_n_pad": fit_rows["film stage 1"]["n_pad"],
                 "film_ms": film["ms"],
@@ -2133,10 +2173,13 @@ def main():
                              >= pv_rec["bytes_ms"] else "bytes"),
                 "bound_share": bound / pv_rec["ms"],
                 "frames": pv_rec["frames"],
+                "passes_ms": pv_rec["passes_ms"],
+                "passes_bytes_ms": pv_rec["passes_bytes_ms"],
                 "empty_steps_ms": pv_rec["floor_ms"],
                 "segment_frames": pv_rec["segment_frames"],
                 "segment_ms": pv_rec["segment_ms"],
                 "segment_bound_ms": pv_rec["segment_bound_ms"],
+                "segment_passes_ms": pv_rec["segment_passes_ms"],
                 "segment_empty_steps_ms": pv_rec["segment_floor_ms"],
                 "segment_vs_host_rel": pv_rec["segment_vs_host"],
                 "library_ms": None}

@@ -8,8 +8,11 @@ iterations in a `lax.scan`, each a cyclic-reduction solve (`_cr_solve`,
 dual updates; the batch is its `vmap` (170-175). In eager torch that is
 ~300 small launches per iteration, so the port runs it as one kernel
 (csrc/fit_admm.cu: one CTA per problem walks every iteration, the
-elimination factors computed once, the state in shared memory up to n =
-4096 and in an L2-resident global scratch above).
+elimination factors computed once; the cyclic reduction's levels compact,
+as the plain version's slices make them; d, the one array the solve's
+steps carry, in shared memory at every n up to 16,384, then the factors,
+the state and the constants as far as shared memory goes, the rest in an
+L2-resident global scratch; the levels of at most 32 rows in one warp).
 
 - `fused_lasso_admm(b, c, kappa, rho1, rho2, iters)` dispatches on the
   tensors' device: CPU tensors go to `fused_lasso_admm_plain`; CUDA tensors
@@ -20,7 +23,10 @@ elimination factors computed once, the state in shared memory up to n =
   is bit-equal to it.
 - `fused_lasso_admm.launches` counts kernel launches.
 - `fit_admm_work(n_pad, iters)` counts the bytes and operations of one
-  problem, for the bound; `empty_steps_ms` measures the barrier floor.
+  problem, for the bound; `steps_per_solve` the CTA barriers and warp
+  steps of a solve, `empty_steps_ms` / `empty_warp_steps_ms` measure one
+  of each: the floor. `shared_slots(n_pad)` names the arrays the kernel
+  keeps in shared memory.
 """
 import ctypes
 import threading
@@ -30,8 +36,15 @@ import torch
 
 ADMM_ITERS = 800
 OVER_RELAX = 1.8
-SHARED_MAX_N = 4096             # csrc/fit_admm.cu: state in shared memory
-N_ARRAYS = 14                   # floats of state per element of a problem
+# csrc/fit_admm.cu: the slots of n floats in the order they claim shared
+# memory (d, the compact levels of the right-hand side, takes two), the
+# bytes a block may use, the warp levels' factor table beside them
+SLOTS = ('D', 'D', 'AL', 'GA', 'CA', 'CC', 'CB', 'P', 'Z', 'A', 'E', 'B', 'R2',
+         'CT', 'KT')
+N_SLOTS = len(SLOTS)
+SMEM_LIMIT = 232448
+WARP_ROWS = 32                  # levels of at most this many rows: one warp
+TAB_BYTES = 4 * (5 * (2 * WARP_ROWS - 1) + 1)
 
 _lib = None
 _count_lock = threading.Lock()  # the batch path fits on pool threads
@@ -50,6 +63,10 @@ def load_library():
                                                     ptr]
         lib.fit_empty_steps_launch.restype = i32
         lib.fit_empty_steps_launch.argtypes = [ll, ll, ptr, ptr]
+        lib.fit_empty_warp_steps_launch.restype = i32
+        lib.fit_empty_warp_steps_launch.argtypes = [ll, ptr, ptr]
+        lib.fit_admm_shared_slots.restype = i32
+        lib.fit_admm_shared_slots.argtypes = [ll]
         _lib = lib
     return _lib
 
@@ -57,6 +74,19 @@ def load_library():
 def levels_of(n_pad):
     """Cyclic-reduction levels of an n_pad system (log2 n_pad)."""
     return int(n_pad).bit_length() - 1
+
+
+def warp_levels(n_pad):
+    """The top levels (at most WARP_ROWS rows) the kernel runs in warp 0."""
+    return min(levels_of(n_pad), levels_of(WARP_ROWS) + 1)
+
+
+def shared_slots(n_pad):
+    """The slots csrc/fit_admm.cu keeps in shared memory at n_pad, as many
+    of SLOTS as fit in SMEM_LIMIT beside the warp table (d's two together
+    or none); the rest are in the global scratch."""
+    fit = (SMEM_LIMIT - TAB_BYTES) // (4 * n_pad)
+    return SLOTS[:0 if fit < 2 else min(N_SLOTS, fit)]
 
 
 def _check(b, c, kappa, rho1, rho2):
@@ -96,8 +126,9 @@ def fused_lasso_admm(b, c, kappa, rho1, rho2, iters=ADMM_ITERS):
     nb, n = b.shape
     t = torch.empty_like(b)
     z = torch.empty_like(rho2)
-    scratch = (torch.empty((nb, N_ARRAYS, n), dtype=torch.float32,
-                           device=dev) if n > SHARED_MAX_N else None)
+    n_shared = lib.fit_admm_shared_slots(n)
+    scratch = (torch.empty((nb, N_SLOTS - n_shared, n), dtype=torch.float32,
+                           device=dev) if n_shared < N_SLOTS else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fit_admm_launch(
@@ -135,18 +166,28 @@ def fit_admm_work(n_pad, iters=ADMM_ITERS):
 def empty_steps_ms(steps, n_pad):
     """Milliseconds of `steps` empty barrier steps of one CTA of the
     kernel's threads at n_pad on the current CUDA device (a warm-up launch
-    first). 800 x (2 log2(n) + 3) such steps are what the ADMM cannot go
-    below."""
+    first): with empty_warp_steps_ms, what the ADMM cannot go below."""
     lib = load_library()
+    return _time_empty(lambda sink, stream: lib.fit_empty_steps_launch(
+        steps, n_pad, sink, stream))
+
+
+def empty_warp_steps_ms(steps):
+    """Milliseconds of `steps` empty steps of one warp (__syncwarp and a
+    carried shared word each) on the current CUDA device."""
+    lib = load_library()
+    return _time_empty(lambda sink, stream: lib.fit_empty_warp_steps_launch(
+        steps, sink, stream))
+
+
+def _time_empty(call):
     sink = torch.empty(1, dtype=torch.float32, device='cuda')
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
-        rc = lib.fit_empty_steps_launch(steps, n_pad, sink.data_ptr(),
-                                        stream)
+        rc = call(sink.data_ptr(), stream)
         if rc != 0:
-            raise RuntimeError(f"empty_steps_ms launch failed: CUDA error "
-                               f"{rc}")
+            raise RuntimeError(f"empty step launch failed: CUDA error {rc}")
     launch()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -158,8 +199,15 @@ def empty_steps_ms(steps, n_pad):
 
 
 def steps_per_solve(n_pad, iters=ADMM_ITERS):
-    """Barrier-separated steps of one solve: 2 log2(n) + 3 per iteration."""
-    return int(iters) * (2 * levels_of(n_pad) + 3)
+    """(CTA barriers, warp steps) of one solve. Per iteration: the
+    right-hand side, the CTA levels of the elimination, the warp phase and
+    the CTA levels of the back substitution, the updates, a barrier after
+    each (2 (log2 n - warp levels) + 3); in the warp phase each warp level
+    of the elimination and of the back substitution and the top equation,
+    a __syncwarp after each (2 warp levels + 1)."""
+    cta = levels_of(n_pad) - warp_levels(n_pad)
+    return (int(iters) * (2 * cta + 3),
+            int(iters) * (2 * warp_levels(n_pad) + 1))
 
 
 # ---------------------------------------------------------------------------

@@ -304,13 +304,14 @@ def _fit_problems(n_pad, sizes, seed):
 def test_fit_admm_kernel_matches_plain_on_card(cuda_device):
     """fused_lasso_admm (csrc/fit_admm.cu) against its plain version on
     the same CUDA tensors: t and z bit-equal, signed zeros included, one
-    launch per call; n_pad 16 with 3-4 real nodes, 512, 4096 (the largest
-    with the state in shared memory) and 8192 (global scratch), batches of
-    one and three."""
+    launch per call; n_pad 16 with 3-4 real nodes, 512, 4096, 8192 and
+    16384 (each a different split of the arrays between shared memory and
+    the global scratch, fit_kernel.shared_slots), batches of one and
+    three."""
     from describealign_tpu_torch.ops import fit_kernel as fk
     for n_pad, sizes in ((16, (3, 4)), (512, (400,)), (4096, (4000, 2500,
                                                                3000)),
-                         (8192, (5761,))):
+                         (8192, (5761,)), (16384, (13653,))):
         args = [torch.from_numpy(a).to(cuda_device)
                 for a in _fit_problems(n_pad, sizes, n_pad)]
         before = fk.fused_lasso_admm.launches

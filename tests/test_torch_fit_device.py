@@ -13,9 +13,11 @@ in segment structure and slopes (equal on every case here) and in
 smooth_y (within 0.05 frames, measured <= 0.006).
 
 The kernel's tiling twin (a numpy emulation of csrc/fit_admm.cu: factors
-computed once, in-place positions level by level, the strided thread
-mapping, the per-problem global scratch) is bit-equal to the plain
-version.
+computed once on compact levels, d's compact levels reduced and solved
+back in place, the strided thread mapping with prefetched factors, d in
+shared memory and the other arrays split between shared memory and the
+per-problem global scratch, the top levels in one warp from the factor
+table) is bit-equal to the plain version.
 """
 import json
 import os
@@ -193,7 +195,7 @@ def test_fit_admm_work_counts():
     assert nbytes == 4 * (2 * 16 + 2 * 15 + 1 + 16 + 15)
     assert flops == 5 * 16 + 2 * 15 + 4 * 15 + 1 + 5 * 15 + 11 * 16 + 11 * 15
     assert fk.fit_admm_work(4096)[1] == 800 * fk.fit_admm_work(4096, 1)[1]
-    assert fk.steps_per_solve(4096) == 800 * 27
+    assert fk.steps_per_solve(4096) == (800 * 15, 800 * 13)
     assert fk.levels_of(16) == 4 and fk.levels_of(32768) == 15
 
 
@@ -219,8 +221,7 @@ def test_fused_lasso_admm_wrapper_checks():
 # The kernel's tiling twin
 # ---------------------------------------------------------------------------
 
-SLOTS = dict(B=0, CT=1, KT=2, R2=3, P=4, Z=5, A=6, E=7, D=8, WA=9, WB=10,
-             WC=11, AL=12, GA=13)
+PF = 8      # csrc/fit_admm.cu: rows per thread prefetched per CTA level
 
 
 def _soft32(v, thr):
@@ -229,66 +230,124 @@ def _soft32(v, thr):
     return np.where(v < 0, -m, m).astype(np.float32)
 
 
-def admm_twin(b, c, k, rho1, rho2, iters, threads, shared_max_n=4096):
+def admm_twin(b, c, k, rho1, rho2, iters, threads, warp_rows=32,
+              n_shared=None):
     """csrc/fit_admm.cu emulated in numpy f32: one CTA per problem of
     `threads` threads (thread tid takes j = tid, tid + threads, ... of a
-    level), the 14 arrays in one per-problem buffer (a global scratch with
-    per-problem offsets above shared_max_n), factors computed once, d
-    reduced and back-substituted in place by position."""
+    level; its first PF rows' factors fetched before the barrier that
+    ends the step before), the slots split between a shared buffer (the
+    first n_shared of fk.SLOTS, d's two first; fk.shared_slots(n) by
+    default) and a per-problem global scratch (NaN where unwritten); the
+    factors computed once on compact levels ping-ponged through the slots
+    of d, p, z, a and e; d's levels compact, reduced level by level and
+    solved back over themselves; the levels of at most warp_rows rows,
+    the top equation and their back substitution in one warp, from the
+    factor table filled at set-up."""
     nb, n = b.shape
     levels = n.bit_length() - 1
+    kw = max(0, levels - (warp_rows.bit_length() - 1) - 1)
+    if n_shared is None:
+        n_shared = len(fk.shared_slots(n))
     f32 = np.float32
     over, under = f32(fk.OVER_RELAX), f32(1 - fk.OVER_RELAX)
-    scratch = np.full(nb * 14 * n, np.nan, np.float32)
     t_out = np.empty((nb, n), np.float32)
     z_out = np.empty((nb, n - 1), np.float32)
 
-    def strided(count):
+    def strided(count, first=0):
         """Items of one barrier step in the threads' order."""
         return [np.arange(m, min(m + threads, count))
-                for m in range(0, count, threads)]
+                for m in range(first, count, threads)]
+
+    def base_of(lv):
+        return n - (n >> lv)
+
+    def dbase(lv):
+        return 2 * n - ((2 * n) >> lv)
 
     for prob in range(nb):
-        buf = (np.full(14 * n, np.nan, np.float32) if n <= shared_max_n
-               else scratch[prob * 14 * n:(prob + 1) * 14 * n])
-        S = {name: buf[slot * n:(slot + 1) * n]
-             for name, slot in SLOTS.items()}
-        B, CT, KT, R2, P, Z, A, E, D = (S[x] for x in "B CT KT R2 P Z A E D"
-                                        .split())
-        WA, WB, WC, AL, GA = S["WA"], S["WB"], S["WC"], S["AL"], S["GA"]
+        smem = np.full(n_shared * n, np.nan, np.float32)
+        scratch = np.full((fk.N_SLOTS - n_shared) * n, np.nan, np.float32)
+        S = {}
+        for slot, name in enumerate(fk.SLOTS):
+            buf, at = ((smem, slot) if slot < n_shared
+                       else (scratch, slot - n_shared))
+            if name not in S:
+                S[name] = buf[at * n:(at + (2 if name == "D" else 1)) * n]
+        D = S["D"]
+        if n_shared:
+            assert np.shares_memory(D, smem)
+        B, CT, KT, R2, P, Z, A, E = (S[x] for x in "B CT KT R2 P Z A E"
+                                     .split())
+        AL, GA, CA, CC, CB = (S[x] for x in "AL GA CA CC CB".split())
         r1 = f32(rho1[prob])
         bp, cp, kp, rp = b[prob], c[prob], k[prob], rho2[prob]
+        xa, xb, xc, ya, yb, yc = D[:n], P, Z, D[n:], A, E
         for i in strided(n):
             B[i] = bp[i]
             CT[i] = cp[i] / r1
             rl = np.where(i > 0, rp[np.maximum(i - 1, 0)], f32(0))
             rr = np.where(i < n - 1, rp[np.minimum(i, n - 2)], f32(0))
-            WB[i] = (r1 + rl).astype(f32) + rr
-            WA[i] = np.where(i > 0, -rp[np.maximum(i - 1, 0)], f32(0))
-            WC[i] = np.where(i < n - 1, -rp[np.minimum(i, n - 2)], f32(0))
-            P[i] = 0
-            A[i] = 0
+            xb[i] = (r1 + rl).astype(f32) + rr
+            xa[i] = np.where(i > 0, -rp[np.maximum(i - 1, 0)], f32(0))
+            xc[i] = np.where(i < n - 1, -rp[np.minimum(i, n - 2)], f32(0))
             e = i[i < n - 1]
             R2[e] = rp[e]
             KT[e] = kp[e] / rp[e]
+        for lv in range(levels):
+            m, base = n >> lv, base_of(lv)
+            for j in strided(m // 2):
+                right = 2 * j + 2 < m
+                jr = np.minimum(2 * j + 2, m - 1)
+                be = xb[2 * j]
+                alpha = xa[2 * j + 1] / be
+                gamma = xc[2 * j + 1] / np.where(right, xb[jr], f32(1))
+                a_next = np.where(right, xa[jr], f32(0))
+                ce_next = np.where(right, xc[jr], f32(0))
+                yb[j] = ((xb[2 * j + 1] - alpha * xc[2 * j]).astype(f32)
+                         - gamma * a_next)
+                ya[j] = -alpha * xa[2 * j]
+                yc[j] = -gamma * ce_next
+                AL[base + j], GA[base + j] = alpha, gamma
+                CA[base + j], CC[base + j], CB[base + j] = (xa[2 * j],
+                                                            xc[2 * j], be)
+            xa, ya, xb, yb, xc, yc = ya, xa, yb, xb, yc, xc
+        # the warp levels' factor table, row base_k - base_kw + j
+        tab0 = base_of(kw)
+        rows_t = base_of(levels) - tab0
+        tab = {x: np.full(2 * warp_rows - 1, np.nan, np.float32)
+               for x in ("AL", "GA", "CA", "CC", "CB")}
+        for x, arr in (("AL", AL), ("GA", GA), ("CA", CA), ("CC", CC),
+                       ("CB", CB)):
+            tab[x][:rows_t] = arr[tab0:tab0 + rows_t]
+        top = xb[0].copy()
+        for i in strided(n):
+            P[i] = 0
+            A[i] = 0
+            e = i[i < n - 1]
             Z[e] = bp[e + 1] - bp[e]
             E[e] = 0
-        for lv in range(levels):
-            s, rows, base = 1 << lv, n >> (lv + 1), n - (n >> lv)
-            for j in strided(rows):
-                q = 2 * s - 1 + j * 2 * s
-                lft, rgt = q - s, q + s
-                right = rgt < n
-                rc = np.minimum(rgt, n - 1)
-                alpha = WA[q] / WB[lft]
-                gamma = WC[q] / np.where(right, WB[rc], f32(1))
-                a_next = np.where(right, WA[rc], f32(0))
-                ce_next = np.where(right, WC[rc], f32(0))
-                nbv = (WB[q] - alpha * WC[lft]).astype(f32) - gamma * a_next
-                na = -alpha * WA[lft]
-                nc = -gamma * ce_next
-                WB[q], WA[q], WC[q] = nbv, na, nc
-                AL[base + j], GA[base + j] = alpha, gamma
+
+        def forward(lv, j, al, ga):
+            m, dk = n >> lv, D[dbase(lv):]
+            de_next = np.where(2 * j + 2 < m, dk[np.minimum(2 * j + 2, m - 1)],
+                               f32(0))
+            D[dbase(lv + 1) + j] = ((dk[2 * j + 1] - al * dk[2 * j])
+                                    .astype(f32) - ga * de_next)
+
+        def back(lv, j, ca, cc, cb):
+            dk, x = D[dbase(lv):], D[dbase(lv + 1):]
+            xr = x[j].copy()
+            xl = np.where(j > 0, x[np.maximum(j - 1, 0)], f32(0))
+            dk[2 * j] = (((dk[2 * j] - ca * xl).astype(f32) - cc * xr)
+                         .astype(f32) / cb)
+            dk[2 * j + 1] = xr
+
+        def fetch(lv, names):
+            """Each thread's first PF rows' factors of level lv."""
+            j = np.arange(min(n >> (lv + 1), PF * threads))
+            arrs = (AL, GA) if names == "fwd" else (CA, CC, CB)
+            return j, [a[base_of(lv) + j].copy() for a in arrs]
+
         for _ in range(iters):
             for i in strided(n):
                 ii = np.minimum(i, n - 2)
@@ -298,24 +357,41 @@ def admm_twin(b, c, k, rho1, rho2, iters, threads, shared_max_n=4096):
                 dtw = np.where(i == 0, -w_i,
                                np.where(i == n - 1, w_l, w_l - w_i))
                 D[i] = r1 * ((B[i] + P[i]).astype(f32) - A[i]) + dtw
-            for lv in range(levels):
-                s, rows, base = 1 << lv, n >> (lv + 1), n - (n >> lv)
-                for j in strided(rows):
-                    q = 2 * s - 1 + j * 2 * s
-                    rgt = q + s
-                    de_next = np.where(rgt < n, D[np.minimum(rgt, n - 1)],
-                                       f32(0))
-                    D[q] = ((D[q] - AL[base + j] * D[q - s]).astype(f32)
-                            - GA[base + j] * de_next)
-            D[n - 1] = D[n - 1] / WB[n - 1]
-            for lv in range(levels - 1, -1, -1):
-                s, rows = 1 << lv, n >> (lv + 1)
-                for j in strided(rows):
-                    e = s - 1 + j * 2 * s
-                    x_left = np.where(j > 0, D[np.maximum(e - s, 0)], f32(0))
-                    x_right = D[e + s]
-                    D[e] = (((D[e] - WA[e] * x_left).astype(f32)
-                             - WC[e] * x_right).astype(f32) / WB[e])
+            regs = fetch(0, "fwd") if kw > 0 else None
+            # __syncthreads()
+            for lv in range(kw):
+                rows, base = n >> (lv + 1), base_of(lv)
+                j, (al, ga) = regs
+                for part in strided(len(j)):
+                    forward(lv, j[part], al[part], ga[part])
+                for jj in strided(rows, PF * threads):
+                    forward(lv, jj, AL[base + jj], GA[base + jj])
+                regs = (fetch(lv + 1, "fwd") if lv + 1 < kw
+                        else fetch(kw - 1, "back"))
+                # __syncthreads()
+            # warp 0: lanes < rows of each warp level, __syncwarp between
+            for lv in range(kw, levels):
+                rows = n >> (lv + 1)
+                assert rows <= warp_rows
+                lane = np.arange(rows)
+                tb = base_of(lv) - tab0 + lane
+                forward(lv, lane, tab["AL"][tb], tab["GA"][tb])
+            D[dbase(levels)] = D[dbase(levels)] / top
+            for lv in range(levels - 1, kw - 1, -1):
+                lane = np.arange(n >> (lv + 1))
+                tb = base_of(lv) - tab0 + lane
+                back(lv, lane, tab["CA"][tb], tab["CC"][tb], tab["CB"][tb])
+            # __syncthreads()
+            for lv in range(kw - 1, -1, -1):
+                rows, base = n >> (lv + 1), base_of(lv)
+                j, (ca, cc, cb) = regs
+                for part in strided(len(j)):
+                    back(lv, j[part], ca[part], cc[part], cb[part])
+                for jj in strided(rows, PF * threads):
+                    back(lv, jj, CA[base + jj], CC[base + jj], CB[base + jj])
+                if lv > 0:
+                    regs = fetch(lv - 1, "back")
+                # __syncthreads()
             for i in strided(n):
                 t = D[i].copy()
                 thp = (over * (t - B[i])).astype(f32) + under * P[i]
@@ -328,17 +404,22 @@ def admm_twin(b, c, k, rho1, rho2, iters, threads, shared_max_n=4096):
                 z = _soft32((thz + E[e]).astype(f32), KT[e])
                 E[e] = (E[e] + thz).astype(f32) - z
                 Z[e] = z
-        t_out[prob] = D
+        t_out[prob] = D[:n]
         z_out[prob] = Z[:n - 1]
     return t_out, z_out
 
 
-@pytest.mark.parametrize("n,threads,shared_max_n", [
-    (16, 32, 4096), (64, 8, 4096), (64, 16, 32), (128, 32, 64)])
-def test_admm_twin_bit_equal_to_plain(n, threads, shared_max_n):
-    """The kernel's decomposition (factors once, in-place levels, strided
-    threads, shared or global state) gives the plain version's bits, on
-    two real fit problems cut to n and one with 3 live nodes."""
+@pytest.mark.parametrize("n,threads,warp_rows,n_shared", [
+    (16, 32, 32, 15), (64, 8, 32, 14), (64, 16, 32, 3), (128, 32, 32, 0),
+    (64, 8, 1, 7), (128, 16, 2, 7), (256, 8, 32, 3)])
+def test_admm_twin_bit_equal_to_plain(n, threads, warp_rows, n_shared):
+    """The kernel's decomposition (factors once on compact levels, d's
+    compact levels reduced and solved back in place, strided threads with
+    prefetched factors, d in shared memory - or, past 16,384, in the
+    scratch - and the rest split with the scratch, the top levels in one
+    warp from the factor table) gives the plain version's bits, on two
+    real fit problems cut to n and one with 3 live nodes; the warp takes
+    1, 2, 4 or 6 levels."""
     problems = [_stage1_problem(s) for s in (0, 3)]
     problems = [tuple(a[:min(len(a), n - 3)] for a in p) for p in problems]
     problems.append((np.array([1.0, 1.02, 0.99]), np.array([3.0, 5.0, 4.0]),
@@ -350,12 +431,30 @@ def test_admm_twin_bit_equal_to_plain(n, threads, shared_max_n):
     iters = 40
     tp, zp = fk.fused_lasso_admm_plain(*_tensors(b, c, k, r1, r2),
                                        iters=iters)
-    tt, zt = admm_twin(b, c, k, r1, r2, iters, threads, shared_max_n)
+    tt, zt = admm_twin(b, c, k, r1, r2, iters, threads, warp_rows, n_shared)
     np.testing.assert_array_equal(tt, tp.numpy())
     np.testing.assert_array_equal(zt, zp.numpy())
     # signed zeros of z too: the breakpoints read z != 0
     np.testing.assert_array_equal(np.signbit(zt), np.signbit(zp.numpy()))
     assert (zt != 0).any() and (zt == 0).any()
+
+
+@pytest.mark.parametrize("n_pad,shared,barriers", [
+    (4096, 14, 15), (8192, 7, 17), (16384, 3, 19), (32768, 0, 21)])
+def test_fit_admm_layout_and_steps(n_pad, shared, barriers):
+    """d in shared memory at every n_pad up to 16,384 (the bench pair's
+    fit is 8,192, the film's 16,384), the factors next (all of them at
+    8,192); 13 warp steps and 2 (log2 n - 6) + 3 CTA barriers per
+    iteration."""
+    names = fk.shared_slots(n_pad)
+    assert len(names) == shared
+    assert 4 * n_pad * len(names) + fk.TAB_BYTES <= fk.SMEM_LIMIT
+    if n_pad <= 16384:
+        assert names[:2] == ("D", "D")
+    if n_pad == 8192:
+        assert set(names) == {"D", "AL", "GA", "CA", "CC", "CB"}
+    assert fk.steps_per_solve(n_pad) == (800 * barriers, 800 * 13)
+    assert fk.steps_per_solve(16, iters=1) == (3, 9)
 
 
 def test_fit_device_fixture_reproduced():

@@ -21,9 +21,12 @@ ops/pv_kernel.py) against the JAX package's, on the CPU.
   rounded once, as XLA's fused multiply-add rounds them.
 - The recurrence's plain version against the JAX package's numpy
   `_phase_lock` within its own test's atol 1e-5 (tests/test_stretch.py),
-  and the kernel's tiling twin (a numpy emulation of csrc/pv_lock.cu:
-  one thread per bin, the double-buffered shared rows with zero edges,
-  the block carry) bit-equal to the plain version.
+  and the kernels' tiling twin (a numpy emulation of csrc/pv_lock.cu's
+  three passes: the prologue's per-lane records with the locking choice
+  as byte-permute selectors, the walk's contiguous bin runs per lane with
+  the shuffles at their edges and zero ends, the write-back in the walk's
+  order and the epilogue's gather, the block carry) bit-equal to the plain version,
+  ties at run boundaries included.
 """
 import os
 
@@ -359,75 +362,128 @@ def test_combine_pv_matches_jax_cli(tmp_path, monkeypatch, capsys):
 # the kernel's tiling twin
 # ---------------------------------------------------------------------------
 
-THREADS = 544
-
-
 def pv_twin(spec, omega, rate, block_frames):
-    """csrc/pv_lock.cu emulated in numpy f32, walked in launches of
-    block_frames frames with the carry: one CTA per channel of THREADS
-    threads (bin b on thread b, threads past the bins idle but at every
-    barrier), mag and rot rows double-buffered by the launch's frame
-    parity with zero entries past both edges. The transcendental
-    functions come from the plain version's torch calls on the whole
-    array, the rest is elementwise f32."""
+    """csrc/pv_lock.cu's three passes emulated in numpy f32, in launches of
+    block_frames frames with the carry. Prologue: per lane's run of bins
+    and frame pa, the wrapped increment's q and the locking choice as a
+    selector word (byte-permute selectors: take the left / the right
+    neighbour's rotation or keep; zeros past both edges, dead runs zero).
+    Walk: each lane of the walking warps owns a contiguous run of bins in
+    registers (runs past the bins read zero records and stay zero); per
+    frame the own rotations, the neighbours across run edges (the
+    shuffles, and across warps the edge values exchanged under the
+    walkers' barrier: the previous run's last, the next run's first; zero
+    at the ends), the two byte permutes on the rotations' bits and
+    the locked phase, written back in the walk's order. Epilogue: lk gathered back to bins, mag (cos, sin). The
+    transcendental functions come from the plain version's torch calls on
+    the whole array, the rest is elementwise f32."""
     f32 = np.float32
     c, f, bins = spec.shape
-    mag = torch.hypot(spec.real, spec.imag).numpy()
+    run, lanes, _, lk_run = pk.walk_layout()
+    b_run = np.arange(lanes)[:, None] * run + np.arange(run)[None, :]
+    live = b_run < bins
+    mag_all = torch.hypot(spec.real, spec.imag).numpy()
     pa_all = torch.atan2(spec.imag, spec.real).numpy()
     om = (omega * torch.tensor(rate)).numpy()
     rate, two_pi = f32(rate), f32(pk.TWO_PI)
     locked = np.empty((c, f, bins), np.float32)
     carry = None
-    b = np.arange(THREADS)
-    live = b < bins
-    bl = b[live]
+
+    def by_run(x):
+        """(..., bins) -> (..., lanes, run), zeros past the bins."""
+        out = np.zeros(x.shape[:-1] + (lanes * run,), x.dtype)
+        out[..., :bins] = x
+        return out.reshape(x.shape[:-1] + (lanes, run))
+
+    def permute(x, y, sel):
+        """prmt(x, y, sel) for the selectors the walk meets: KEEP, TAKE and
+        0 (no record: byte 0 of x four times)."""
+        sel = sel & 0xFFFF
+        assert np.isin(sel, (pk.KEEP, pk.TAKE, 0)).all()
+        return np.where(sel == pk.TAKE, y, np.where(
+            sel == 0, (x & 0xFF) * np.uint32(0x01010101), x))
+
     for k0 in range(0, f, block_frames):
         k1 = min(k0 + block_frames, f)
-        new_carry = np.empty((2, c, bins), np.float32)
+        fb = k1 - k0
+        pa, mag = pa_all[:, k0:k1], mag_all[:, k0:k1]
+        # prologue
+        first = pa[:, :1] if carry is None else carry[0][:, None]
+        prev = np.concatenate([first, pa[:, :-1]], 1)
+        dphi = ((pa - prev).astype(f32) - om).astype(f32)
+        dphi = (dphi - two_pi * np.rint(dphi / two_pi)).astype(f32)
+        q = ((om + dphi).astype(f32) / rate).astype(f32)
+        if carry is None:
+            q[:, 0] = 0
+        zero = np.zeros((c, fb, 1), np.float32)
+        lm = np.concatenate([zero, mag[:, :, :-1]], 2)
+        rm = np.concatenate([mag[:, :, 1:], zero], 2)
+        take_l = lm > np.maximum(mag, rm)
+        take_r = ~take_l & (rm > mag)
+        sel = (np.where(take_l, pk.TAKE, pk.KEEP)
+               | np.where(take_r, pk.TAKE, pk.KEEP) << 16).astype(np.uint32)
+        rec_pa, rec_q = by_run(pa), by_run(q)
+        rec_sel = by_run(sel)
+        rec_sel[:, :, ~live] = pk.KEEP | pk.KEEP << 16
+        rec_sel[:, :, b_run[:, 0] >= bins] = 0    # dead runs: zero records
+        # walk, one CTA per channel; lk written back in the walk's order
+        lkbuf = np.full(c * fb * lanes * lk_run, np.nan, np.float32)
+        lk_out = np.empty((c, bins), np.float32)
         for ch in range(c):
-            mrow = np.zeros((2, THREADS + 2), np.float32)
-            rrow = np.zeros((2, THREADS + 2), np.float32)
-            if carry is None:
-                prev_pa = pa_all[ch, k0].copy()
-                prev_lk = prev_pa.copy()
-                locked[ch, k0] = prev_pa
-                first = 1
-            else:
-                prev_pa, prev_lk = carry[0, ch].copy(), carry[1, ch].copy()
-                first = 0
-            for kk in range(first, k1 - k0):
-                k = k0 + kk
-                buf = kk & 1
-                m, pa = mag[ch, k], pa_all[ch, k]
-                dphi = ((pa - prev_pa).astype(f32) - om).astype(f32)
-                dphi = (dphi - two_pi * np.rint(dphi / two_pi)).astype(f32)
-                inst = (om + dphi).astype(f32)
-                rot = ((prev_lk + inst / rate).astype(f32) - pa).astype(f32)
-                mrow[buf, bl + 1] = m
-                rrow[buf, bl + 1] = rot
-                # __syncthreads()
-                lm, rm = mrow[buf, bl], mrow[buf, bl + 2]
-                dom = np.where(lm > np.maximum(m, rm), rrow[buf, bl],
-                               np.where(rm > m, rrow[buf, bl + 2], rot))
-                prev_lk = (pa + dom).astype(f32)
-                prev_pa = pa
-                locked[ch, k] = prev_lk
-            new_carry[0, ch], new_carry[1, ch] = prev_pa, prev_lk
-        carry = new_carry
+            lk = np.zeros((lanes, run), np.float32)
+            if carry is not None:
+                lk[live] = carry[1, ch, b_run[live]]
+            for kk in range(fb):
+                p_, q_, s_ = rec_pa[ch, kk], rec_q[ch, kk], rec_sel[ch, kk]
+                if kk == 0 and carry is None:
+                    lk = p_.copy()
+                else:
+                    rot = ((lk + q_).astype(f32) - p_).astype(f32)
+                    left = np.concatenate([[0], rot[:-1, -1]]).astype(f32)
+                    right = np.concatenate([rot[1:, 0], [0]]).astype(f32)
+                    lft = np.concatenate([left[:, None], rot[:, :-1]], 1)
+                    rgt = np.concatenate([rot[:, 1:], right[:, None]], 1)
+                    bits = [x.view(np.uint32) for x in (rot, lft, rgt)]
+                    dom = permute(permute(bits[0], bits[1], s_), bits[2],
+                                  s_ >> 16).view(np.float32)
+                    lk = (p_ + dom).astype(f32)
+                lkbuf[pk.lk_index(kk, b_run, fb, ch)] = lk
+            lk_out[ch] = lk[live]
+        # epilogue
+        kb = np.arange(fb)[:, None]
+        for ch in range(c):
+            locked[ch, k0:k1] = lkbuf[pk.lk_index(kb, np.arange(bins), fb,
+                                                  ch)]
+        carry = np.stack([pa[:, -1], lk_out])
     lk = torch.from_numpy(locked)
-    mg = torch.from_numpy(mag)
+    mg = torch.from_numpy(mag_all)
     return (torch.complex(mg * torch.cos(lk), mg * torch.sin(lk)),
             torch.from_numpy(carry))
 
 
+def _run_boundary_ties(re, im):
+    """Equal magnitudes across every run boundary of the walk (bins 8 | 9,
+    17 | 18, ...; 287 | 288 between its two warps) and at bins 16 | 17: bin b
+    mirrors bin b - 1 (the real part negated), so the magnitudes tie bit
+    for bit while the phases differ."""
+    run = pk.walk_layout()[0]
+    for b in sorted(set(range(run, pk.BINS, run)) | {17}):
+        re[..., b], im[..., b] = -re[..., b - 1], im[..., b - 1]
+    return re, im
+
+
 @pytest.mark.parametrize("block_frames,ties", [(1 << 20, False), (7, False),
-                                               (6, True)])
+                                               (6, True), (5, "runs")])
 def test_pv_twin_bit_equal_to_plain(block_frames, ties):
     rng = np.random.default_rng(3)
     shape = (2, 30, pk.BINS)
     re, im = rng.standard_normal(shape), rng.standard_normal(shape)
-    if ties:    # integer spectra: equal neighbouring magnitudes
+    if ties is True:    # integer spectra: equal neighbouring magnitudes
         re, im = np.round(re * 2), np.round(im * 2)
+    elif ties == "runs":
+        re, im = _run_boundary_ties(re, im)
+        mag = np.hypot(re, im)
+        assert (mag[..., 16] == mag[..., 17]).all()
     spec = torch.from_numpy((re + 1j * im).astype(np.complex64))
     omega = torch.from_numpy((2 * np.pi * np.arange(pk.BINS) * 256 / 1024)
                              .astype(np.float32))
@@ -436,3 +492,35 @@ def test_pv_twin_bit_equal_to_plain(block_frames, ties):
     got, carry_g = pv_twin(spec, omega, rate, block_frames)
     assert torch.equal(got, want)
     assert torch.equal(carry_g, carry_w)
+
+
+def test_pv_walk_layout():
+    """The walking warps' lanes own contiguous runs of 9 covering every
+    bin; each lane's record keeps the vector loads' 16-byte alignment; the
+    write-back index is one to one."""
+    run, lanes, rec, lk_run = pk.walk_layout()
+    assert (run, lanes) == (9, 32 * pk.WALK_WARPS)
+    assert run * lanes >= pk.MAX_BINS
+    assert rec == lanes * 16 * (-(-3 * run // 4)) and rec % 16 == 0
+    assert lk_run % 4 == 0 and lk_run >= run
+    f = 9
+    idx = pk.lk_index(np.arange(f)[:, None], np.arange(pk.BINS)[None], f)
+    assert len(np.unique(idx)) == idx.size
+
+
+@pytest.mark.parametrize("shape", ["block", "segment"])
+def test_pv_lock_work_counts(shape):
+    """The bound's bytes at the path's block and the rate pair's whole
+    segment (227,390 stereo frames): 16 bytes per bin and frame, the
+    function's least; the three passes as built move more."""
+    f = 8192 if shape == "block" else 227390
+    nbytes, flops = pk.pv_lock_work(2, f)
+    assert nbytes == 16 * 2 * f * 513 and flops == 20 * 2 * f * 513
+    if shape == "segment":
+        assert abs(nbytes / 3.35e12 * 1e3 - 1.114) < 1e-3
+    passes = pk.pv_pass_bytes(2, f)
+    _, lanes, rec, lk_run = pk.walk_layout()
+    assert passes["walk"] == 2 * f * (rec + 4 * lanes * lk_run)
+    assert passes["prologue"] == 2 * f * (8 * 513 + rec)
+    assert passes["epilogue"] == 2 * f * 20 * 513
+    assert sum(passes.values()) > nbytes
