@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch port on an NVIDIA GPU (H100): build its CUDA
 kernels from the sources, hold each kernel against its plain version, drive
 the single-pair main path on the bench pair, the CLI, a feature film, a
-batch of 8 pairs, the device-feature path and the output side (device fit,
-device phase vocoder and resampler), and check the results against the
-JAX package's (tests/data/torch_*_expected.json).
+batch of 8 pairs, the device-feature path, the output side (device fit,
+device phase vocoder and resampler) and the last device modules (mel
+frontend, sequence sharding, data-parallel batch), and check the results
+against the JAX package's (tests/data/torch_*_expected.json).
 
     python3 chip_smoke.py
 
@@ -118,7 +119,23 @@ Needs one CUDA device and nvcc; exits non-zero without them. Phases:
    (PV_CARD_RMS) on the segment's first 2^19 samples; the CLI with
    --fit_backend device
    (and --no_pitch_correction, to keep WSOLA's host time out) on the full
-   WAVs: exit 0, no fallback WARNING, ADMM launches.
+   WAVs: exit 0, no fallback WARNING, ADMM launches;
+9. the last device modules, against tests/data/torch_mel_expected.json and
+   tests/data/torch_sharded_expected.json (the JAX package's results,
+   scripts/torch_expected_parallel.py): (a) the bench pair through
+   align_from_pcm(frontend='mel') (the host mel bands), e2e and split, or
+   the JAX fixture's raise; (b) features_for(frontend='mel') on both
+   tracks on the card (K1 once and K2 twice per track, the torch mel
+   bands: each stream within MEL_RTOL / MEL_ATOL of the same function on
+   the CPU), then align(); peak memory, mel_band_features' and its rFFT's
+   CUDA-event times; (c) sequence_sharded_features over [cuda:0] * 4 and
+   [cuda:0] against the unsharded extract_features on the card, each track
+   cut to a multiple of 210 x 4: interior frames bit-equal (or within the
+   CPU bars), the edge smear, wall times, one K1 and one K2 per shard (one
+   card cannot time a multi-GPU exchange); (d) the batch of 8 through
+   align_batch_from_pcm with mesh=make_mesh(), mesh=[cuda:0] * 3 and the
+   serial path: every pair's nodes within 10 ms of the JAX fixtures, the
+   wall and launches of each route, host waits in one group's dispatch.
 Each phase prints its wall time. The line before the last is the kernels'
 JSON record; the last line is {"ok": true, "device": {...}}.
 """
@@ -150,8 +167,12 @@ DEVICE_EXPECTED = os.path.join(REPO, "tests", "data",
                                "torch_device_features_expected.json")
 FIT_EXPECTED = os.path.join(REPO, "tests", "data",
                             "torch_fit_device_expected.json")
+MEL_EXPECTED = os.path.join(REPO, "tests", "data",
+                            "torch_mel_expected.json")
+SHARDED_EXPECTED = os.path.join(REPO, "tests", "data",
+                                "torch_sharded_expected.json")
 FIXTURES = (EXPECTED, COMBINE_EXPECTED, FILM_EXPECTED, BATCH_EXPECTED,
-            DEVICE_EXPECTED, FIT_EXPECTED)
+            DEVICE_EXPECTED, FIT_EXPECTED, MEL_EXPECTED, SHARDED_EXPECTED)
 MARGIN_REL = 1e-3           # batch margin (an f16 word) vs the f32 margin
 PLANTED_OFFSET_S = 202.0    # the film pair's lead-in
 TOL_S = 0.010               # node / start-offset agreement with JAX, seconds
@@ -1861,6 +1882,342 @@ def phase_stretch(rate_pair, smi):
     return pv_launches, pv_rec, cli["launches"]
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the last device modules (mel frontend, sequence sharding, the
+# data-parallel batch)
+# ---------------------------------------------------------------------------
+
+# the mel bands on the card (cuFFT) against the same function on the CPU
+# (pocketfft): two FFTs of 512 points round differently, ~1e-6 of a band's
+# power; the CPU tests hold the CPU version to XLA's at rtol 1e-5 / atol
+# 1e-6. K1 and K2, which make streams 0-1, are bit-equal to their plain
+# versions (phase 7a)
+MEL_RTOL = 1e-4
+MEL_ATOL = 1e-5
+# sharded vs unsharded interior frames: bit-equal expected (the halo keeps
+# every interior output's inputs and order); else held to the CPU tests'
+# bars against the JAX sharded call (tests/test_torch_seqshard.py)
+SHARD_RTOL = 2e-5
+SHARD_ATOL = 2e-5
+
+
+def against_jax(label, result, expected, margin=True):
+    """{check: ok} of an alignment's 5- or 6-tuple against a JAX fixture's
+    entry (nodes, start offset, similarity, slope; the margin when both
+    have one), and the line that says so."""
+    x, y, sim, _, slope = result[:5]
+    start_off = float(x[0] - y[0])
+    jx = np.asarray(expected["audio_times_s"])
+    jy = np.asarray(expected["video_times_s"])
+    node_err = float(np.max(np.abs(np.interp(jx, x, y) - jy)))
+    checks = {
+        "start offset": abs(start_off - expected["start_offset_s"]) <= TOL_S,
+        "nodes": node_err <= TOL_S,
+        "similarity": abs(sim - expected["similarity_percent"]) <= 0.5,
+        "median slope": abs(slope - expected["median_slope"]) <= 1e-4,
+        "finite": bool(np.isfinite(x).all() and np.isfinite(y).all()),
+    }
+    line = (f"{label}: start offset {start_off:.4f} s (JAX "
+            f"{expected['start_offset_s']:.4f}), max node error "
+            f"{node_err * 1e3:.2f} ms over {len(jx)} JAX nodes, similarity "
+            f"{sim:.3f} (JAX {expected['similarity_percent']:.3f}), slope "
+            f"{slope:.7f} (JAX {expected['median_slope']:.7f})")
+    if margin and len(result) > 5 and "margin" in expected:
+        checks["margin"] = (abs(result[5] / expected["margin"] - 1)
+                            <= MARGIN_REL)
+        line += (f", margin {result[5]:.5f} (JAX "
+                 f"{expected['margin']:.5f})")
+    return checks, node_err, line
+
+
+def run_or_raise(fn):
+    """(fn()'s result, None) or (None, the exception's type name)."""
+    try:
+        return fn(), None
+    except Exception as e:          # compared with the fixture's raise
+        return None, type(e).__name__
+
+
+def phase_mel(v, a, n_chunks, smi):
+    """Phase 9a-b: the mel frontend. (a) the bench pair through
+    align_from_pcm(frontend='mel') (host mel bands, the streamed matcher)
+    against tests/data/torch_mel_expected.json's host entry; (b) the mel
+    streams on the card (features_for(frontend='mel'): K1 + two K2
+    launches per track, the torch mel bands) against the same function on
+    the CPU, then align() against the fixture's device entry. Returns the
+    kernels' launches in 9a's timed run and in 9b's two features_for
+    calls and align()."""
+    from describealign_tpu_torch.alignment import api, matching
+    from describealign_tpu_torch.ops import mel
+    from describealign_tpu_torch.pipeline import features_for
+    with open(MEL_EXPECTED) as f:
+        expected = json.load(f)
+
+    # (a) the host path
+    def host(timings=None):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return api.align_from_pcm(v, a, device="cuda", timings=timings,
+                                      frontend="mel")
+
+    split = {}
+    kernel_counts(reset=True)
+    t0 = time.perf_counter()
+    result, raised = run_or_raise(host)
+    first_s = time.perf_counter() - t0
+    host_launches = kernel_counts()
+    want_raise = expected["host"].get("raises")
+    if raised or want_raise:
+        print(f"[9a mel host] align_from_pcm(frontend='mel') raised "
+              f"{raised}, JAX raised {want_raise} ({smi})", flush=True)
+        if raised != want_raise:
+            raise AssertionError(f"9a: the port raised {raised}, JAX "
+                                 f"{want_raise}")
+    else:
+        t0 = time.perf_counter()
+        host(split)
+        split_s = time.perf_counter() - t0
+        checks, _, line = against_jax("bench pair", result,
+                                      expected["host"])
+        want = {"fine_match": n_chunks * matching.N_TRACKS,
+                "dp_forward": matching.N_TRACKS,
+                "dp_backtrace": matching.N_TRACKS,
+                "pcm_frontend": 0, "polyphase_blur": 0,
+                "fused_lasso_admm": 0, "pv_phase_lock": 0}
+        checks["launches"] = host_launches == want
+        print(f"[9a mel host] align_from_pcm(frontend='mel'): e2e "
+              f"{first_s:.3f} s, again with the split {split_s:.3f} s: "
+              + ", ".join(f"{k} {s:.3f} s" for k, s in split.items())
+              + f" | launches {host_launches} | {line} ({smi}) - "
+              + ", ".join(f"{k} {'ok' if ok else 'FAIL'}"
+                          for k, ok in checks.items()), flush=True)
+        if not all(checks.values()):
+            raise AssertionError(f"9a disagrees with JAX: {checks}")
+
+    # (b) the device mel streams, then align()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernel_counts(reset=True)
+    t0 = time.perf_counter()
+    feats = [features_for(pcm, frontend="mel") for pcm in (v, a)]
+    feat_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    (vf, nv), (af, na) = feats
+    with contextlib.redirect_stdout(io.StringIO()):
+        result, raised = run_or_raise(lambda: api.align(
+            vf, af, vf[0], af[0], video_frames=nv, audio_frames=na,
+            device="cuda"))
+    dev_launches = kernel_counts()
+    worst = []
+    for label, pcm, got in (("video", v, vf), ("audio", a, af)):
+        cpu, _ = features_for(pcm, device="cpu", frontend="mel")
+        errs = []
+        for j, (g, c) in enumerate(zip(got, cpu)):
+            d = np.abs(g.astype(np.float64) - c)
+            errs.append((float(d.max()),
+                         float(np.max(d / np.maximum(np.abs(c), 1e-30))),
+                         bool(np.all(d <= MEL_ATOL + MEL_RTOL * np.abs(c)))))
+        worst.append((label, errs))
+    # mel_band_features and its rFFT alone, on the audio track
+    pcm = torch.from_numpy(a.astype(np.float32)).cuda()
+    mel_ms = cuda_ms(lambda: mel.mel_band_features(pcm))
+    n_frames = pcm.shape[1] // mel.HOP
+    frames = torch.nn.functional.pad(pcm[0, :n_frames * mel.HOP],
+                                     (0, mel.N_FFT)).unfold(
+        0, mel.N_FFT, mel.HOP)[:n_frames].contiguous()
+    rfft_ms = cuda_ms(lambda: torch.fft.rfft(frames, dim=1))
+    del frames, pcm
+    want_raise = expected["device"].get("raises")
+    checks = {"streams on the card vs CPU": all(ok for _, errs in worst
+                                                for _, _, ok in errs),
+              # K1 once and K2 twice per track; the matcher's kernels
+              "launches": dev_launches["pcm_frontend"] == 2
+              and dev_launches["polyphase_blur"] == 4
+              and (raised is not None or min(
+                  dev_launches[k] for k in ("fine_match", "dp_forward",
+                                            "dp_backtrace")) > 0),
+              "raise": raised == want_raise}
+    line = f"align() raised {raised}, JAX raised {want_raise}"
+    if result is not None and not want_raise:
+        more, _, line = against_jax("bench pair", result, expected["device"])
+        checks.update(more)
+    print(f"[9b mel device] features_for(frontend='mel') on both tracks "
+          f"{feat_s:.3f} s (peak device memory {peak / 2**20:.0f} MiB over "
+          f"what was allocated before; on the audio track mel_band_features "
+          f"{mel_ms:.3f} ms, its {n_frames} frames' rFFT alone "
+          f"{rfft_ms:.3f} ms); streams vs the CPU "
+          f"version (max abs, max rel, within rtol {MEL_RTOL} / atol "
+          f"{MEL_ATOL}) "
+          + "; ".join(f"{label} " + ", ".join(
+              f"{j}: {e:.3g} {r:.3g}" for j, (e, r, _) in enumerate(errs))
+              for label, errs in worst)
+          + f" | launches {dev_launches} | {line} ({smi}) - "
+          + ", ".join(f"{k} {'ok' if ok else 'FAIL'}"
+                      for k, ok in checks.items()), flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"9b disagrees: {checks}")
+    return host_launches, dev_launches
+
+
+def phase_seqshard(v, a, smi):
+    """Phase 9c: sequence_sharded_features over [cuda:0] * 4 and [cuda:0]
+    against the unsharded extract_features on the card, each bench track
+    cut to a multiple of 210 x 4: interior frames (8 .. n - 8) bit-equal
+    or within the CPU bars, edge frames' error stated, wall times, K1 / K2
+    launches per shard. Returns the launches of the four- and one-shard
+    calls on both tracks."""
+    from describealign_tpu_torch.ops.features import extract_features
+    from describealign_tpu_torch.parallel.seqshard import \
+        sequence_sharded_features
+    card = torch.device("cuda", 0)
+    launches = {}
+    rows, checks = [], {}
+    for label, pcm in (("video", v), ("audio", a)):
+        s = pcm.shape[1] - pcm.shape[1] % (210 * 4)
+        x = torch.from_numpy(np.ascontiguousarray(pcm[:, :s])).float()
+        x = x.to(card)
+        n = s // 210
+
+        def whole():
+            return torch.stack([f[:n] for f in extract_features(
+                x, device=card)])
+
+        def wall(fn):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        ref, ref_ms = wall(whole)
+        for shards in (4, 1):
+            mesh = [card] * shards
+            kernel_counts(reset=True)
+            got = sequence_sharded_features(x, mesh)
+            torch.cuda.synchronize()
+            count = kernel_counts()
+            for k, c in count.items():
+                launches[k] = launches.get(k, 0) + c
+            _, ms = wall(lambda: sequence_sharded_features(x, mesh))
+            inner_g, inner_r = got[:, 8:n - 8], ref[:, 8:n - 8]
+            d = (inner_g - inner_r).abs()
+            rel = float((d / inner_r.abs().clamp_min(1e-30)).max())
+            bit = bool(torch.equal(inner_g, inner_r))
+            edge = float((got - ref).abs().max())
+            ok = bit or bool(torch.all(d <= SHARD_ATOL
+                                       + SHARD_RTOL * inner_r.abs()))
+            checks[f"{label} {shards}"] = (
+                ok and got.shape == (5, n)
+                and count["pcm_frontend"] == shards
+                and count["polyphase_blur"] == shards)
+            rows.append(f"{label} {s} samples over {shards} shard(s): "
+                        f"{ms:.3f} ms (unsharded {ref_ms:.3f} ms), interior "
+                        f"frames {'bit-equal' if bit else 'worst rel err'}"
+                        f"{'' if bit else f' {rel:.3g}'}, all frames max "
+                        f"abs err {edge:.3g} (the edge smear), K1 "
+                        f"{count['pcm_frontend']} and K2 "
+                        f"{count['polyphase_blur']} launches")
+        del x, ref
+    print(f"[9c seqshard] sequence_sharded_features on one card (the "
+          f"halo copies stay on it: one card cannot time a multi-GPU "
+          f"exchange): " + " | ".join(rows) + f" ({smi}) - "
+          + ", ".join(f"{k} {'ok' if ok else 'FAIL'}"
+                      for k, ok in checks.items()), flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"9c disagrees: {checks}")
+    return launches
+
+
+def phase_sharded_batch(batch, smi):
+    """Phase 9d: the batch of 8 through align_batch_from_pcm three ways in
+    this call: mesh=make_mesh() (one card: groups of 1), mesh=[cuda:0] * 3
+    (groups of 3, 3 and 2) and the serial path; each pair against the JAX
+    fixtures (tests/data/torch_sharded_expected.json for the meshes,
+    torch_batch8_expected.json for the serial path), wall and launches of
+    each route, host waits in one group's dispatch. Returns {route:
+    launches}."""
+    from describealign_tpu_torch.alignment import api, matching
+    from describealign_tpu_torch.parallel.batch import (device_align_step,
+                                                        make_mesh)
+    with open(SHARDED_EXPECTED) as f:
+        expected = json.load(f)
+    with open(BATCH_EXPECTED) as f:
+        serial_expected = json.load(f)["pairs"]
+    pairs, lens, _, kinds = batch
+    n_pairs = len(expected["pairs"])
+    if [(e["video_samples"], e["audio_samples"], e["kind"])
+            for e in expected["pairs"]] != [
+            (sv, sa, k) for (sv, sa), k in zip(lens[:n_pairs],
+                                               kinds[:n_pairs])]:
+        raise AssertionError("the batch pairs differ from the sharded "
+                             "fixture's")
+    pairs, lens = pairs[:n_pairs], lens[:n_pairs]
+    minutes = sum(sa for _, sa in lens) / 44100 / 60
+    card = torch.device("cuda", 0)
+    routes = {"mesh=make_mesh()": (make_mesh(), "mesh1"),
+              "mesh=[cuda:0]*3": ([card] * 3, "mesh3"),
+              "serial": (None, None)}
+    launches, rows, checks = {}, [], {}
+    for route, (mesh, key) in routes.items():
+        kernel_counts(reset=True)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            results = api.align_batch_from_pcm(pairs, true_samples=lens,
+                                               mesh=mesh)
+        wall_s = time.perf_counter() - t0
+        launches[route] = kernel_counts()
+        want = expected[key] if key else serial_expected[:n_pairs]
+        errs = []
+        for k, (got, e) in enumerate(zip(results, want)):
+            c, err, _ = against_jax(f"pair {k}", got, e, margin=key is None)
+            checks[f"{route} pair {k}"] = all(c.values())
+            errs.append(err * 1e3)
+        n_groups = -(-n_pairs // len(mesh)) if mesh else None
+        checks[f"{route} quiet"] = out.getvalue() == ""
+        # the meshes run the single-shot matcher: one fine pass and one DP
+        # per track and pair; the serial path, phase 6's streamed matcher
+        per = (2 * n_pairs if mesh else None)
+        checks[f"{route} launches"] = (
+            launches[route]["pcm_frontend"] == 0
+            and all(launches[route][k] == per if per else
+                    launches[route][k] > 0
+                    for k in ("fine_match", "dp_forward", "dp_backtrace")))
+        rows.append(f"{route}"
+                    f"{f' ({n_groups} groups)' if n_groups else ''}: "
+                    f"{wall_s:.3f} s = {minutes / wall_s:.1f} "
+                    f"audio-minutes per second, node error vs JAX max "
+                    f"{max(errs):.2f} ms (per pair "
+                    f"{[round(e, 2) for e in errs]}), launches "
+                    f"{launches[route]}")
+
+    # one group's dispatch on three slots, as the mesh route dispatches
+    # each pair: host waits
+    npad = max(max(api._bucket_pad(sv // 210), api._bucket_pad(sa // 210))
+               for sv, sa in lens[:3])
+
+    def dispatch():
+        for (v, a), (sv, sa) in zip(pairs[:3], lens[:3]):
+            dev_av, _, _, na, nv = api._upload_pair_features(
+                v, a, sv, sa, npad, card, "cascade")
+            api._to_host(device_align_step(dev_av[0], na, dev_av[1], nv),
+                         card)
+    waits = host_waits(dispatch)
+    torch.cuda.synchronize()
+    checks["no host wait"] = not waits
+    print(f"[9d sharded batch] the batch of {n_pairs} ({minutes:.1f} "
+          f"audio-minutes) on one card: " + " | ".join(rows)
+          + f" | host waits in one 3-pair group's dispatch: {len(waits)} "
+          f"{waits} ({smi}) - "
+          + ("nodes, quiet, launches, no host wait: all ok"
+             if all(checks.values()) else "FAIL "
+             + ", ".join(k for k, ok in checks.items() if not ok)),
+          flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"9d disagrees: {checks}")
+    return launches
+
+
 def main():
     missing = [p for p in (os.path.join(REPO, "describealign_tpu_torch",
                                         "__init__.py"),) + FIXTURES
@@ -2031,10 +2388,17 @@ def main():
     # --- phase 8: the output side: device fit, device PV and resampler ----
     fit_launches, fit_rows = phase_fit_device(v, a, nodes, smi)
     rate_pair = batch[0][batch[3].index("rate")]
-    del v, a, batch
     pv_launches, pv_rec, cli8_launches = phase_stretch(rate_pair, smi)
     del rate_pair
-    phase_done(8, t_phase, smi)
+    t_phase = phase_done(8, t_phase, smi)
+
+    # --- phase 9: the mel frontend, sequence sharding, the sharded batch --
+    mel_launches, mel_dev_launches = phase_mel(v, a, n_chunks, smi)
+    shard_launches = phase_seqshard(v, a, smi)
+    del v, a
+    dp_launches = phase_sharded_batch(batch, smi)
+    del batch
+    phase_done(9, t_phase, smi)
 
     def by_phase(kernel):
         return {"3 align_from_pcm, 3 runs": launches[kernel],
@@ -2049,7 +2413,14 @@ def main():
                     fit_launches[kernel],
                 "8c combine(stretcher='pv', pv_backend='device')":
                     pv_launches[kernel],
-                "8c CLI --fit_backend device": cli8_launches[kernel]}
+                "8c CLI --fit_backend device": cli8_launches[kernel],
+                "9a align_from_pcm(frontend='mel')": mel_launches[kernel],
+                "9b features_for(frontend='mel') x 2 + align()":
+                    mel_dev_launches[kernel],
+                "9c sequence_sharded_features, 4 + 1 shards, 2 tracks":
+                    shard_launches[kernel],
+                **{f"9d batch of 8, {route}": n[kernel]
+                   for route, n in dp_launches.items()}}
 
     def feature_record(kernel, line):
         # times and bounds per pair: the sum over its two streams

@@ -18,6 +18,9 @@ the CUDA kernels (nvcc) into build/describealign_tpu_torch/.
     # features='device' on either entry point computes the features on
     # the card from the int16 PCM (two hand-written CUDA kernels)
     feats, n_frames = features_for(pcm)             # 5 numpy streams
+    # frontend='mel' (host features, features_for) swaps streams 2-4 for
+    # mel bands; mesh=[devices] matches a batch data-parallel
+    # (parallel/batch.py); parallel/seqshard.py shards long PCM over devices
     combine("video.mp4", "audio.mp3")          # or the CLI:
     # describealign-tpu-torch video.mp4 audio.mp3
 """

@@ -20,11 +20,19 @@ streams computed on the device in f32 (ops/features.py, two CUDA kernels
 on the card), the single-shot matcher, and the native lis_from_match on
 the unquantized qualities (api.py:208-221, 265-311).
 
+frontend='mel' (the PCM entry points and combine(); the JAX package reads
+DESCRIBEALIGN_FRONTEND=mel) takes streams 2-4 of the host features from
+the mel filterbank (ops/mel.py). The JAX device-feature matcher always
+computes the cascade, so frontend='mel' with features='device' raises
+here. mesh= on align_batch_from_pcm matches the pairs data-parallel over a
+list of devices (parallel/batch.py, api.py:667-717).
+
 Not ported (link workarounds of the TPU setup, not semantics): the compact
 transports, the pull modes and the separate pull pool, and the profiler
 directory. The port reads no DESCRIBEALIGN_* setting; its defaults are the
 JAX package's.
 """
+import contextlib
 import ctypes
 import os
 import threading
@@ -35,6 +43,7 @@ import numpy as np
 import torch
 
 from ..ops.host_features import extract_features_host
+from ..ops.mel import check_frontend
 from . import continuity, fit, lis, matching, preprocess, refine
 from .native import native_lib
 from .outputs import similarity_and_nodes
@@ -76,15 +85,18 @@ def _fail_if_short(path_len, num_video, num_audio):
         raise RuntimeError("Alignment failed, are the input files mismatched?")
 
 
-def host_features_padded(pcm_i16, true_samples=None, npad=None):
+def host_features_padded(pcm_i16, true_samples=None, npad=None,
+                         frontend='cascade'):
     """Host feature extraction into the bucket-padded (5, Npad) f32 stack;
-    frames past the true length are zero. Returns (stack, n_frames)."""
+    frames past the true length are zero. Returns (stack, n_frames).
+    frontend: 'cascade' or 'mel' (ops/host_features)."""
     true_samples = true_samples or pcm_i16.shape[1]
     n = int(true_samples) // 210
     if npad is None:
         npad = _bucket_pad(n)
     out = np.zeros((5, max(npad, n + 3)), np.float32)
-    fs = extract_features_host(pcm_i16, true_samples, out=out)
+    fs = extract_features_host(pcm_i16, true_samples, out=out,
+                               frontend=frontend)
     if fs and len(fs[0]) and fs[0].base is out:
         out[:, n:] = 0.0
         return np.ascontiguousarray(out[:, :npad]), n
@@ -95,10 +107,18 @@ def host_features_padded(pcm_i16, true_samples=None, npad=None):
     return out, n
 
 
-def _feature_path(features):
+def _feature_path(features, frontend='cascade'):
+    """features itself, or a ValueError: an unknown path or frontend, or
+    the mel frontend with device features (the device-feature matcher
+    computes the cascade; the JAX package would silently compute cascade
+    features there, matching.py:440-445)."""
     if features not in FEATURE_PATHS:
         raise ValueError(f"features={features!r}: expected one of "
                          f"{FEATURE_PATHS}")
+    if check_frontend(frontend) == 'mel' and features == 'device':
+        raise ValueError("frontend='mel' with features='device': the "
+                         "device-feature matcher computes the cascade "
+                         "frontend only; use features='host' for mel")
     return features
 
 
@@ -160,7 +180,7 @@ def _timer(timings, device):
 def align_from_pcm(video_pcm_i16, audio_pcm_i16, fit_backend=None,
                    video_samples=None, audio_samples=None,
                    combine_prints=False, device='cuda', timings=None,
-                   features='host'):
+                   features='host', frontend='cascade'):
     """int16 PCM (channels, samples) in, alignment out.
 
     video_samples/audio_samples: true sample counts when the PCM arrays are
@@ -175,7 +195,7 @@ def align_from_pcm(video_pcm_i16, audio_pcm_i16, fit_backend=None,
     streamed matcher) or 'device' (int16 PCM upload, the device
     extractor, the single-shot matcher; 'features' is then the upload
     plus the extraction, and combine_prints adds no line, as in the JAX
-    package).
+    package). frontend: 'cascade' or 'mel' (host features only).
 
     Returns (audio_times_s, video_times_s, similarity_percent, path,
     median_slope, coarse_margin) - align()'s 5-tuple plus the margin; the
@@ -184,7 +204,7 @@ def align_from_pcm(video_pcm_i16, audio_pcm_i16, fit_backend=None,
     device = torch.device(device)
     fit_backend = fit_backend or DEFAULT_FIT_BACKEND
     mark = _timer(timings, device) if timings is not None else None
-    if _feature_path(features) == 'device':
+    if _feature_path(features, frontend) == 'device':
         na = (audio_samples or audio_pcm_i16.shape[1]) // 210
         nv = (video_samples or video_pcm_i16.shape[1]) // 210
         print("  memorizing video...        \r", end='')
@@ -206,14 +226,14 @@ def align_from_pcm(video_pcm_i16, audio_pcm_i16, fit_backend=None,
     sv = video_samples or video_pcm_i16.shape[1]
     sa = audio_samples or audio_pcm_i16.shape[1]
     npad = max(_bucket_pad(sv // 210), _bucket_pad(sa // 210))
-    feats_v_np, nv = host_features_padded(video_pcm_i16, sv, npad)
+    feats_v_np, nv = host_features_padded(video_pcm_i16, sv, npad, frontend)
     dev_v = _upload(feats_v_np, device)
     if combine_prints:
         # the audio stream was decoded ahead with the video; the
         # reference's line sequence is kept (describealign.py:1109-1113)
         print("  reading audio file...       \r", end='')
         print("  computing audio features...\r", end='')
-    feats_a_np, na = host_features_padded(audio_pcm_i16, sa, npad)
+    feats_a_np, na = host_features_padded(audio_pcm_i16, sa, npad, frontend)
     dev_a = _upload(feats_a_np, device)
     if combine_prints:
         print("  memorizing video...        \r", end='')
@@ -383,7 +403,8 @@ def _require_device(device):
 
 def align_batch_from_pcm(pairs, fit_backend=None, device_depth=4,
                          host_workers=None, true_samples=None,
-                         device='cuda', features='host'):
+                         device='cuda', features='host', frontend='cascade',
+                         mesh=None):
     """Batch fast path: list of (video_pcm_i16, audio_pcm_i16) pairs.
 
     The calling thread extracts each pair's features and dispatches its
@@ -393,13 +414,28 @@ def align_batch_from_pcm(pairs, fit_backend=None, device_depth=4,
     the GIL). true_samples: per pair (video, audio) true sample counts
     when the PCM arrays are padded. device: where the matcher runs.
     features: as in align_from_pcm; 'device' dispatches each pair's PCM
-    upload and extract_and_match (api.py:265-311).
+    upload and extract_and_match (api.py:265-311). frontend: as in
+    align_from_pcm.
+
+    mesh: an optional sequence of devices (parallel.batch.make_mesh); the
+    pairs are then matched data-parallel across them in mesh-sized groups,
+    pair i on mesh[i % len(mesh)] (_align_batch_sharded, on the same
+    pipeline; host features only), and `device` is not used.
 
     Returns a list of align_from_pcm's 6-tuples, one per pair, in input
     order. The first error of any pair is raised.
     """
-    device = _require_device(device)
-    _feature_path(features)
+    _feature_path(features, frontend)
+    if mesh is not None and features == 'device':
+        raise ValueError("mesh= with features='device': the data-parallel "
+                         "batch matches host features only")
+    if mesh is None:
+        device = _require_device(device)
+    else:
+        mesh = [_require_device(d) for d in mesh]
+        if not mesh:
+            raise ValueError("mesh= holds no device (make_mesh() finds no "
+                             "CUDA device here)")
     fit_backend = fit_backend or DEFAULT_FIT_BACKEND
     if host_workers is None:
         # cores + 1: one thread may wait for the device while the others
@@ -407,11 +443,15 @@ def align_batch_from_pcm(pairs, fit_backend=None, device_depth=4,
         host_workers = min(4, (os.cpu_count() or 1) + 1)
     if true_samples is None:
         true_samples = [(v.shape[1], a.shape[1]) for (v, a) in pairs]
+    if mesh is not None:
+        return _align_batch_sharded(pairs, true_samples, mesh, fit_backend,
+                                    host_workers, device_depth, frontend)
     if features == 'device':
         return _align_batch_device(pairs, true_samples, fit_backend,
                                    host_workers, device_depth, device)
     return _align_batch_streamed(pairs, true_samples, fit_backend,
-                                 host_workers, device_depth, device)
+                                 host_workers, device_depth, device,
+                                 frontend)
 
 
 def _pull_dense_parts(buf, n_tracks):
@@ -427,61 +467,82 @@ def _pull_dense_parts(buf, n_tracks):
 
 
 def _pipelined(pairs, true_samples, dispatch, refine, host_workers,
-               device_depth, device):
-    """The batch pipeline of both feature paths (api.py:265-311, 380-664).
+               device_depth, mesh):
+    """The batch pipeline of every batch route (api.py:265-311, 380-717).
 
-    - the calling thread runs dispatch(v, a, sv, sa) for each pair in
-      order: it enqueues the pair's upload, matcher and device-to-host
-      copies on the current stream and returns (parts, event) without
-      waiting (event None on the CPU), then moves to the next pair;
+    - the calling thread runs dispatch(v, a, sv, sa, npad, device) for
+      each pair in order: it enqueues the pair's upload, matcher and
+      device-to-host copies on the device's current stream and returns
+      (parts, event) without waiting (event None on the CPU), then moves
+      to the next pair;
     - a pool thread waits for the event, releases the pair's in-flight
       slot as soon as the bytes are on the host, and returns
-      refine(parts, sv, sa): the CPU stages, under the core-count token.
+      refine(parts, sv, sa, device): the CPU stages, under the core-count
+      token.
+
+    mesh: the devices; pair i runs on mesh[i % len(mesh)], and its npad is
+    the common bucket of its group of len(mesh) pairs (the largest of the
+    group's pairs' buckets, over its real pairs), so a one-device mesh
+    gives each pair its own bucket.
 
     Outstanding device results stay bounded by device_depth (+1 being
-    copied). The low-confidence retry runs its matcher from the pool
-    thread, outside that bound, as in the JAX package: at most
-    host_workers retries are in flight, each holding one pair's matcher
-    state on the device, on the same stream as the dispatches.
+    copied) per distinct device. The low-confidence retry runs its matcher
+    from the pool thread, outside that bound, as in the JAX package: at
+    most host_workers retries are in flight, each holding one pair's
+    matcher state on its device, on the same stream as the dispatches.
     """
-    cuda = device.type == 'cuda'
-    in_flight = threading.Semaphore(max(2, device_depth + 1))
+    n_dev = len(mesh)
+    in_flight = threading.Semaphore(max(2, device_depth + 1)
+                                    * len(set(mesh)))
+    buckets = [max(_bucket_pad(sv // 210), _bucket_pad(sa // 210))
+               for sv, sa in true_samples]
 
-    def settle_and_refine(parts, done, sv, sa):
+    def settle_and_refine(parts, done, sv, sa, device):
         try:
             if done is not None:
                 done.synchronize()
         finally:
             in_flight.release()
         with _HOST_TOKEN:
-            return refine(parts, sv, sa)
+            return refine(parts, sv, sa, device)
 
     def on_device(fn):
         # the current device is per thread
         def run(*args):
-            with torch.cuda.device(device):
+            with _on(args[-1]):
                 return fn(*args)
-        return run if cuda else fn
+        return run
 
     futs = []
     pool = ThreadPoolExecutor(max_workers=host_workers)
     try:
-        for (v, a), (sv, sa) in zip(pairs, true_samples):
+        for i, ((v, a), (sv, sa)) in enumerate(zip(pairs, true_samples)):
+            device = mesh[i % n_dev]
+            g0 = i - i % n_dev
+            npad = max(buckets[g0:g0 + n_dev])
             in_flight.acquire()
             try:
-                parts, done = on_device(dispatch)(v, a, sv, sa)
+                parts, done = on_device(dispatch)(v, a, sv, sa, npad,
+                                                  device)
             except BaseException:
                 # a failing dispatch must not keep its slot; the first
                 # error aborts the batch
                 in_flight.release()
                 raise
             futs.append(pool.submit(on_device(settle_and_refine), parts,
-                                    done, sv, sa))
+                                    done, sv, sa, device))
         return [f.result() for f in futs]
     finally:
         # pairs already handed to the pool finish (and release their
         # slots); none is left running when the call returns or raises
         pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _on(device):
+    """A context that makes `device` the current CUDA device (nothing for
+    the CPU): launches, streams and events are per device."""
+    return (torch.cuda.device(device) if device.type == 'cuda'
+            else contextlib.nullcontext())
 
 
 def _to_host(tensors, device):
@@ -492,35 +553,42 @@ def _to_host(tensors, device):
         return list(tensors), None
     host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             for t in tensors]
-    for h, t in zip(host, tensors):
-        h.copy_(t, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
+    with torch.cuda.device(device):
+        for h, t in zip(host, tensors):
+            h.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
     return host, done
 
 
-def _align_batch_streamed(pairs, true_samples, fit_backend, host_workers,
-                          device_depth, device):
-    """The host-feature batch (api.py:380-664, dense transport): the
-    dispatching thread extracts pair i's features (native code, GIL
-    released), uploads them as one pinned (2, 5, Npad) f16 array,
-    dispatches the matcher and the one-buffer transport and starts the
-    buffer's copy; the pool thread runs the native LIS feed and the
-    refinement tail (_pipelined)."""
-    cuda = device.type == 'cuda'
+def _upload_pair_features(v, a, sv, sa, npad, device, frontend):
+    """Both streams' host features (native code, GIL released) padded to
+    npad, uploaded as one pinned (2, 5, npad) f16 array ([0] = audio, [1]
+    = video) without a host wait. Returns (the device array, fa, fv, na,
+    nv): the f32 features for the host stages and the true frame
+    counts."""
+    fav_t = torch.empty((2, 5, npad), dtype=torch.float16,
+                        pin_memory=device.type == 'cuda')
+    fav = fav_t.numpy()
+    with _HOST_TOKEN:
+        fv, nv = host_features_padded(v, sv, npad, frontend)
+        fa, na = host_features_padded(a, sa, npad, frontend)
+        fav[0] = fa
+        fav[1] = fv
+    return fav_t.to(device, non_blocking=True), fa, fv, na, nv
 
-    def dispatch(v, a, sv, sa):
-        npad = max(_bucket_pad(sv // 210), _bucket_pad(sa // 210))
-        fav_t = torch.empty((2, 5, npad), dtype=torch.float16,
-                            pin_memory=cuda)
-        fav = fav_t.numpy()
-        with _HOST_TOKEN:
-            fv, nv = host_features_padded(v, sv, npad)
-            fa, na = host_features_padded(a, sa, npad)
-            # one combined upload per pair ([0] = audio, [1] = video)
-            fav[0] = fa
-            fav[1] = fv
-        dev_av = fav_t.to(device, non_blocking=True)
+
+def _align_batch_streamed(pairs, true_samples, fit_backend, host_workers,
+                          device_depth, device, frontend='cascade'):
+    """The host-feature batch (api.py:380-664, dense transport): the
+    dispatching thread extracts pair i's features and uploads them
+    (_upload_pair_features), dispatches the matcher and the one-buffer
+    transport and starts the buffer's copy; the pool thread runs the
+    native LIS feed and the refinement tail (_pipelined)."""
+
+    def dispatch(v, a, sv, sa, npad, device):
+        dev_av, fa, fv, na, nv = _upload_pair_features(v, a, sv, sa, npad,
+                                                       device, frontend)
         chunks, starts_dev, _, margin_dev = matching.match_stream_pair(
             dev_av, na, nv)
         combo = matching.concat_chunks_with_starts(chunks, starts_dev,
@@ -528,7 +596,7 @@ def _align_batch_streamed(pairs, true_samples, fit_backend, host_workers,
         (host_buf,), done = _to_host([combo], device)
         return (host_buf, starts_dev.shape[0], fa, fv, na, nv), done
 
-    def refine(parts, sv, sa):
+    def refine(parts, sv, sa, device):
         host_buf, n_tracks, fa, fv, na, nv = parts
         packed, starts_tracks, margin = _pull_dense_parts(host_buf.numpy(),
                                                           n_tracks)
@@ -538,7 +606,7 @@ def _align_batch_streamed(pairs, true_samples, fit_backend, host_workers,
                                       quiet=True)
 
     return _pipelined(pairs, true_samples, dispatch, refine, host_workers,
-                      device_depth, device)
+                      device_depth, [device])
 
 
 def _align_batch_device(pairs, true_samples, fit_backend, host_workers,
@@ -548,19 +616,54 @@ def _align_batch_device(pairs, true_samples, fit_backend, host_workers,
     extract_and_match and starts the copies of its six outputs; the pool
     thread runs lis_from_match and the refinement tail (_pipelined)."""
 
-    def dispatch(v, a, sv, sa):
+    def dispatch(v, a, sv, sa, npad, device):
         out = matching.extract_and_match(
             _pcm_to_device(a, device), sa // 210,
             _pcm_to_device(v, device), sv // 210)
         return _to_host(_single_shot_parts(out), device)
 
-    def refine(parts, sv, sa):
+    def refine(parts, sv, sa, device):
         return _host_stages_single_shot([t.numpy() for t in parts],
                                         sa // 210, sv // 210, fit_backend,
                                         device, quiet=True)
 
     return _pipelined(pairs, true_samples, dispatch, refine, host_workers,
-                      device_depth, device)
+                      device_depth, [device])
+
+
+def _align_batch_sharded(pairs, true_samples, mesh, fit_backend,
+                         host_workers, device_depth, frontend='cascade'):
+    """The data-parallel batch (api.py:667-717), on the batch pipeline
+    (_pipelined): the pairs in groups of len(mesh), pair i on
+    mesh[i % len(mesh)], each group's features padded to the group's
+    COMMON bucket (it sets kv and the band clamps, so a pair may see
+    another width than on the serial path) and uploaded as f16; the
+    device side is parallel.batch.device_align_step (the single-shot
+    matcher, the u8 quality transport); the pool threads run
+    lis_from_match and the host tail with its retry on the pair's device
+    (api.py:709-713: quiet, with the margin).
+
+    The JAX package fills a ragged last group by repeating its last pair
+    and drops those results; here the group is just smaller, with the
+    bucket taken over its real pairs as there."""
+    from ..parallel.batch import device_align_step
+
+    def dispatch(v, a, sv, sa, npad, device):
+        dev_av, fa, fv, na, nv = _upload_pair_features(v, a, sv, sa, npad,
+                                                       device, frontend)
+        host, done = _to_host(device_align_step(dev_av[0], na, dev_av[1],
+                                                nv), device)
+        return (host, fa, fv, na, nv), done
+
+    def refine(parts, sv, sa, device):
+        host, fa, fv, na, nv = parts
+        quals, offs, starts, margin = (t.numpy() for t in host)
+        return _host_stages_single_shot((quals, offs, starts, fa, fv,
+                                         margin), na, nv, fit_backend,
+                                        device, quiet=True)
+
+    return _pipelined(pairs, true_samples, dispatch, refine, host_workers,
+                      device_depth, mesh)
 
 
 def _rescale_native(feats_a_np, feats_v_np, na, nv, xi, yi):

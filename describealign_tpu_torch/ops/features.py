@@ -1,13 +1,14 @@
 """Feature extraction on tensors: raw PCM (channels, samples) to the
 reference's 5 feature streams at 210 frames/sec (describealign.py:545-593).
 
-Port of describealign_tpu/ops/features.py (cascade frontend only), whose
-energy_feature, zero_crossing_feature and freq_band_features make the
-streams that extract_features returns here:
+Port of describealign_tpu/ops/features.py, whose energy_feature,
+zero_crossing_feature and freq_band_features make the streams that
+extract_features returns here:
 
   0. smoothed log energy
   1. zero-crossing rate
-  2-4. cascaded frequency-band log energies
+  2-4. cascaded frequency-band log energies (frontend='mel': the mel band
+     energies of ops/mel.mel_band_features instead)
 
 The work is split the way the two hand-written CUDA kernels split it
 (csrc/features_dev.cu, wrapped by ops/features_kernel.py):
@@ -36,6 +37,7 @@ order the kernel uses), where XLA reduces in its own order.
 import numpy as np
 import torch
 
+from .mel import check_frontend, mel_band_features
 from .windows import hann_taps
 
 FRAME = 210                       # samples per 210-fps feature frame
@@ -97,12 +99,17 @@ def _log_epilogue(v):
     return torch.log10(1. + v) / 2.
 
 
-def pcm_frontend_plain(pcm):
+def pcm_frontend_plain(pcm, kill_crossing_at=None, kill_enabled=True):
     """K1's plain version. pcm: (C, S) f32 samples (on the f16 grid when
     they come from int16). Returns (energy (S // 105,): the mean square of
     each 105-sample block over the channels; crossings (S // 210,): signbit
     transitions per frame summed over channels, x2 for mono; bottom and
-    band (S // 210 * 42,): stage 1 of the cascade)."""
+    band (S // 210 * 42,): stage 1 of the cascade).
+
+    kill_crossing_at: an optional sample index whose crossing is not
+    counted when kill_enabled, as in the JAX zero_crossing_feature (the
+    sequence-sharded extractor cancels the last shard's artificial
+    data-to-zero-halo crossing with it)."""
     c, s = pcm.shape
     n = s - s % ENERGY_BLOCK
     sq = pcm[:, :n].reshape(c, -1, ENERGY_BLOCK)
@@ -118,6 +125,8 @@ def pcm_frontend_plain(pcm):
     prev = torch.cat([torch.zeros((c, 1), dtype=torch.bool,
                                   device=pcm.device), sign[:, :-1]], dim=1)
     xings = sign != prev
+    if kill_crossing_at is not None and kill_enabled:
+        xings[:, kill_crossing_at] = False
     n = s - s % FRAME
     crossings = torch.sum(xings[:, :n].reshape(c, -1, FRAME),
                           dim=(0, 2)).float()
@@ -149,15 +158,40 @@ def polyphase_blur_plain(x, ds, blur, r=0, bottom=None, epilogue=None):
     return out
 
 
-def pcm_frontend(pcm):
+def cancel_crossing(crossings, pcm, at):
+    """Take sample `at`'s crossing, where K1 counted one, out of its
+    frame's count: a crossing is a sign-bit change from pcm[:, at - 1] to
+    pcm[:, at] (from a cleared sign bit at sample 0), per channel, x2 for
+    mono, as K1 counts; a sample of the trailing part frame, which K1
+    does not count, changes nothing. The counts are integers in f32, so
+    this is exact. Runs on the device without a host wait."""
+    c = pcm.shape[0]
+    if at // FRAME >= crossings.shape[0]:
+        return crossings
+    sign = torch.signbit(pcm[:, at])
+    prev = (torch.signbit(pcm[:, at - 1]) if at > 0
+            else torch.zeros_like(sign))
+    lost = (sign != prev).sum().float() * (2 if c == 1 else 1)
+    crossings = crossings.clone()
+    crossings[at // FRAME] -= lost
+    return crossings
+
+
+def pcm_frontend(pcm, kill_crossing_at=None):
     """K1 on the PCM's device: the plain version on the CPU; on CUDA the
-    kernel, which also takes int16 PCM (rounded to f16 as it loads)."""
+    kernel, which also takes int16 PCM (rounded to f16 as it loads).
+    kill_crossing_at: as in pcm_frontend_plain; on CUDA cancel_crossing
+    takes it out of the kernel's counts before they are smoothed (K1 has
+    no such argument)."""
     if pcm.device.type == 'cpu':
         if pcm.dtype == torch.int16:
             pcm = pcm.half()
-        return pcm_frontend_plain(pcm.float())
+        return pcm_frontend_plain(pcm.float(), kill_crossing_at)
     from .features_kernel import pcm_frontend_cuda
-    return pcm_frontend_cuda(pcm)
+    energy, crossings, bottom, band = pcm_frontend_cuda(pcm)
+    if kill_crossing_at is not None:
+        crossings = cancel_crossing(crossings, pcm, kill_crossing_at)
+    return energy, crossings, bottom, band
 
 
 def polyphase_blur(x, ds, blur, r=0, bottom=None, epilogue=None):
@@ -197,16 +231,28 @@ def _streams(pcm):
     return polyphase_cascade(*pcm_frontend(pcm))
 
 
-def extract_features(pcm, device='cuda'):
+def _mel_streams(pcm):
+    """The mel frontend's 5 streams: energy and crossings off K1 and two
+    K2 smoothing launches (the cascade's first two stages), the mel bands
+    off ops/mel.mel_band_features."""
+    energy, crossings, _, _ = pcm_frontend(pcm)
+    return (polyphase_blur(energy, 1, SMOOTH, epilogue='energy'),
+            polyphase_blur(crossings, 1, SMOOTH),
+            *mel_band_features(pcm))
+
+
+def extract_features(pcm, device='cuda', frontend='cascade'):
     """All 5 feature streams for one PCM array (channels, samples), a numpy
-    array or a tensor, on `device`.
+    array or a tensor, on `device`; frontend 'cascade' or 'mel'
+    (features.py:142-159, where DESCRIBEALIGN_FRONTEND chooses).
 
     Returns a tuple of 5 f32 tensors at 210 fps. Lengths may differ by one
     frame between streams (energy keeps a half-block tail), as in the
     reference. The samples are taken as f32 values, as the JAX package's
     extract_features takes them."""
+    check_frontend(frontend)
     pcm = torch.as_tensor(pcm).to(device=device, dtype=torch.float32)
-    return _streams(pcm)
+    return _mel_streams(pcm) if frontend == 'mel' else _streams(pcm)
 
 
 def feature_stack(pcm, n_frames):

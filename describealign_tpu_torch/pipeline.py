@@ -19,6 +19,7 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch
 
 from .constants import (AUDIO_EXTENSIONS, AUDIO_SAMPLE_RATE,
                         DEFAULT_ALIGNMENT_DIR, DEFAULT_OUTPUT_DIR,
@@ -36,19 +37,20 @@ def _low_ram_std(arr):
                    / arr.size - avg ** 2)
 
 
-def features_for(pcm, device='cuda'):
+def features_for(pcm, device='cuda', frontend='cascade'):
     """Bucketed feature extraction utility for module users
     (pipeline.py:33-47): zero-pads PCM (channels, samples) to a 60-second
     quantum and returns (list of 5 numpy f32 streams, true 210fps frame
     count), suitable for the feature-list align() entry. The streams are
-    computed on `device` (ops/features.extract_features)."""
+    computed on `device` (ops/features.extract_features) with the
+    'cascade' or the 'mel' frontend."""
     from .ops.features import extract_features
     quantum = AUDIO_SAMPLE_RATE * PCM_BUCKET_SECONDS
     true_samples = pcm.shape[1]
     pad = (-true_samples) % quantum
     if pad:
         pcm = np.pad(pcm, ((0, 0), (0, pad)))
-    feats = extract_features(pcm, device=device)
+    feats = extract_features(pcm, device=device, frontend=frontend)
     return [f.cpu().numpy() for f in feats], true_samples // 210
 
 
@@ -64,6 +66,20 @@ def _use_batch(n_work):
     return n_work > 1
 
 
+def _auto_mesh(device='cuda'):
+    """The devices for directory batches (pipeline.py:63-88): every CUDA
+    device of the host when there is more than one and `device` names no
+    card of its own (the bare 'cuda'; pair i on card i % n,
+    api._align_batch_sharded), else None (the single-device batch on
+    `device`). The JAX package's DESCRIBEALIGN_MESH is not read."""
+    device = torch.device(device)
+    if (device.type == 'cuda' and device.index is None
+            and torch.cuda.device_count() > 1):
+        from .parallel.batch import make_mesh
+        return make_mesh()
+    return None
+
+
 class _BatchAligner:
     """Background decode + batch-align engine for directory mode.
 
@@ -77,7 +93,7 @@ class _BatchAligner:
     """
 
     def __init__(self, items, num_channels, keep_pcm, group, device,
-                 features='host'):
+                 features='host', frontend='cascade'):
         # items: list of (pair_index, video_file, audio_file) in input order
         self._items = items
         self._nch = num_channels
@@ -85,6 +101,7 @@ class _BatchAligner:
         self._group = group
         self._device = device
         self._features = features
+        self._frontend = frontend
         self._q = queue_mod.Queue(maxsize=max(2, group))
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True)
@@ -103,6 +120,9 @@ class _BatchAligner:
         from .alignment.api import align_batch_from_pcm
         from .media.decode import parse_audio_int16
         try:
+            # the data-parallel batch takes host features on the cards
+            mesh = (_auto_mesh(self._device) if self._features == 'host'
+                    else None)
             for g0 in range(0, len(self._items), self._group):
                 if self._stop.is_set():
                     return
@@ -116,7 +136,9 @@ class _BatchAligner:
                     lens.append((v.shape[1], a.shape[1]))
                 results = align_batch_from_pcm(pcm, true_samples=lens,
                                                device=self._device,
-                                               features=self._features)
+                                               features=self._features,
+                                               frontend=self._frontend,
+                                               mesh=mesh)
                 for (idx, _, _), res, vap, ln in zip(group, results, pcm,
                                                      lens):
                     payload = (vap + ln) if self._keep_pcm else None
@@ -151,14 +173,16 @@ def combine(video, audio, stretch_audio=False, yes=False, prepend="ad_",
             no_pitch_correction=False, output_dir=DEFAULT_OUTPUT_DIR,
             alignment_dir=DEFAULT_ALIGNMENT_DIR, device='cuda',
             features='host', stretcher='wsola', pv_backend='host',
-            resample_backend='host'):
+            resample_backend='host', frontend='cascade'):
     """Combine videos with matching audio description files.
 
     Same public behavior as the JAX package's combine() and the reference's
     documented module API (reference README.md:136-140); device is where
     the matcher runs; features is where the features are extracted
     ('host' or 'device', see alignment.api.align_from_pcm; the JAX package
-    reads DESCRIBEALIGN_FEATURES). In stretch mode, stretcher ('wsola' or
+    reads DESCRIBEALIGN_FEATURES); frontend is 'cascade' or 'mel' (host
+    features only; the JAX package reads DESCRIBEALIGN_FRONTEND). In
+    stretch mode, stretcher ('wsola' or
     'pv'), pv_backend and resample_backend ('host' or 'device', on
     `device`) choose the stretch backends (stretch.segments; the JAX
     package reads DESCRIBEALIGN_STRETCH, DESCRIBEALIGN_PV and
@@ -177,7 +201,7 @@ def combine(video, audio, stretch_audio=False, yes=False, prepend="ad_",
     from .stretch.segments import check_backends, replace_aligned_segments
 
     device = _require_device(device)
-    _feature_path(features)
+    _feature_path(features, frontend)
     check_backends(stretcher, pv_backend, resample_backend)
 
     video_files, has_audio_extensions = get_sorted_filenames(
@@ -239,7 +263,8 @@ def combine(video, audio, stretch_audio=False, yes=False, prepend="ad_",
             continue
         if (not stretch_audio) & bool(hax):
             break  # the loop below raises at this pair; align nothing past it
-        cached = aligncache.load(alignment_dir, vf, af, num_channels)
+        cached = aligncache.load(alignment_dir, vf, af, num_channels,
+                                 frontend)
         if cached is not None:
             cached_outputs[i] = cached
         else:
@@ -251,7 +276,7 @@ def combine(video, audio, stretch_audio=False, yes=False, prepend="ad_",
         batcher = _BatchAligner(align_needed, num_channels,
                                 keep_pcm=stretch_audio,
                                 group=BATCH_GROUP_SIZE, device=device,
-                                features=features)
+                                features=features, frontend=frontend)
         batch_owned = {i for i, _, _ in align_needed}
 
     # decode-ahead for the sequential path: decode the next pair in a
@@ -304,7 +329,7 @@ def combine(video, audio, stretch_audio=False, yes=False, prepend="ad_",
                 print("  reading video file...\r", end='')
                 outputs, payload = batcher.get(pair_index)
                 aligncache.save(alignment_dir, video_file, audio_desc_file,
-                                outputs, num_channels)
+                                outputs, num_channels, frontend)
                 if stretch_audio:
                     video_i16, audio_i16, video_samples, audio_samples = \
                         payload
@@ -340,9 +365,11 @@ def combine(video, audio, stretch_audio=False, yes=False, prepend="ad_",
                                              audio_samples=audio_samples,
                                              combine_prints=True,
                                              device=device,
-                                             features=features)
+                                             features=features,
+                                             frontend=frontend)
                     aligncache.save(alignment_dir, video_file,
-                                    audio_desc_file, outputs, num_channels)
+                                    audio_desc_file, outputs, num_channels,
+                                    frontend)
                 del video_i16, audio_i16
             audio_desc_times, video_times, similarity_percent, path, \
                 median_slope = outputs[:5]

@@ -378,3 +378,66 @@ def test_device_stretch_on_card(cuda_device):
     step = np.spacing(np.maximum(np.maximum(np.abs(g), np.abs(c)),
                                  1.0).astype(np.float16)).astype(np.float32)
     assert (np.abs(g - c) <= step).all()
+
+
+def test_last_device_modules_on_card(cuda_device):
+    """The mel frontend, sequence sharding and the data-parallel batch on
+    the card: K1's crossings with one sample's crossing cancelled
+    (cancel_crossing; a halo's zero or a negative sample) equal to the
+    plain kill on the CPU; four shards' interior frames equal to the
+    unsharded extractor's on the card, every frame within rtol 1e-5 /
+    atol 1e-6 of the same four shards on the CPU; the mel streams within rtol 1e-4 / atol 1e-5 of the CPU's (cuFFT
+    and pocketfft round differently); the batch on a 2-slot mesh equal to
+    the serial batch within 1e-6 s."""
+    from describealign_tpu_torch.alignment import api
+    from describealign_tpu_torch.ops import features as tf
+    from describealign_tpu_torch.ops import features_kernel as fk
+    from describealign_tpu_torch.parallel.seqshard import (
+        HALO, sequence_sharded_features)
+    rng = np.random.default_rng(60)
+    # sample `at`: a halo's zero after a negative sample, a negative
+    # sample after a positive one (a crossing), a negative one after a
+    # negative one (none)
+    for channels, at_value, before_value in (
+            (1, 0.0, -1234.0), (2, 0.0, -1234.0), (1, -900.0, 800.0),
+            (2, -900.0, 800.0), (1, -900.0, -800.0), (2, -900.0, -800.0)):
+        data = (rng.standard_normal((channels, 210 * 300)) * 3000).astype(
+            np.float32)
+        data[:, -1] = before_value
+        at = data.shape[1]
+        x = torch.from_numpy(np.concatenate(
+            [data, np.zeros((channels, HALO), np.float32)], axis=1))
+        x[:, at] = at_value
+        before = fk.pcm_frontend_cuda.launches
+        got = tf.pcm_frontend(x.to(cuda_device), kill_crossing_at=at)[1]
+        assert fk.pcm_frontend_cuda.launches == before + 1
+        assert torch.equal(got.cpu(), tf.pcm_frontend_plain(
+            x, kill_crossing_at=at)[1])
+    video, audio, _ = build_pair(content_seconds=14.0, narration=(),
+                                 lead_in=2.0, seed=3)
+    s = video.shape[1] - video.shape[1] % (210 * 4)
+    pcm = video[:, :s]
+    n = s // 210
+    sharded = sequence_sharded_features(pcm, [cuda_device] * 4)
+    whole = tf.extract_features(pcm, device=cuda_device)
+    for j in range(5):
+        assert torch.equal(sharded[j][8:n - 8], whole[j][8:n - 8])
+    torch.testing.assert_close(
+        sharded.cpu(), sequence_sharded_features(pcm, ['cpu'] * 4),
+        rtol=1e-5, atol=1e-6)
+    mel = tf.extract_features(pcm, device=cuda_device, frontend='mel')
+    for g, c in zip(mel, tf.extract_features(pcm, device='cpu',
+                                             frontend='mel')):
+        torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-5)
+    pairs = []
+    for seed in (31, 32):
+        v, a, _ = build_pair(content_seconds=16.0, narration=(),
+                             lead_in=2.0 + seed % 3, seed=seed)
+        pairs.append((np.clip(v, -32768, 32767).astype(np.int16),
+                      np.clip(a, -32768, 32767).astype(np.int16)))
+    got = api.align_batch_from_pcm(pairs, mesh=[cuda_device] * 2)
+    want = api.align_batch_from_pcm(pairs, device=cuda_device)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g[0], w[0], atol=1e-6)
+        np.testing.assert_allclose(g[1], w[1], atol=1e-6)
+        assert abs(g[2] - w[2]) < 1e-9

@@ -1,8 +1,9 @@
 """The port runs where jax is absent: the card machine has no jax,
 sortedcontainers, matplotlib or platformdirs, and the port imports nothing
 of the JAX package. A subprocess blocks those modules and the JAX package
-and runs the port's align_from_pcm (both feature paths), features_for,
-the batch, the device fit, phase vocoder and resampler, then combine()
+and runs the port's align_from_pcm (both feature paths, the mel frontend),
+features_for, sequence-sharded features, the batch (with and without a
+device list), the device fit, phase vocoder and resampler, then combine()
 (with the device stretch backends) and the CLI's --version, on a small
 pair on the CPU.
 chip_smoke.py imports only the port, torch and numpy."""
@@ -55,6 +56,19 @@ for r in both:
     assert np.array_equal(r[0], out[0]) and np.array_equal(r[1], out[1])
 assert len(BATCH_SPECS) == 8
 assert coarse_dp.dp_forward.launches == coarse_dp.dp_backtrace.launches == 0
+
+# the mel frontend, sequence-sharded features, the data-parallel batch
+from describealign_tpu_torch.parallel.seqshard import sequence_sharded_features
+from describealign_tpu_torch.pipeline import _auto_mesh
+mel = align_from_pcm(v, a, device="cpu", frontend="mel")
+assert abs(float(mel[0][0] - mel[1][0]) - 2.0) < 0.05
+feats, _ = features_for(a, device="cpu", frontend="mel")
+assert len(feats) == 5
+s = a.shape[1] - a.shape[1] % (210 * 4)
+assert sequence_sharded_features(a[:, :s], ["cpu"] * 4).shape == (5, s // 210)
+dp = align_batch_from_pcm([(v, a), (v, a)], device="cpu", mesh=["cpu"] * 2)
+assert len(dp) == 2 and all(len(r) == 6 for r in dp)
+assert _auto_mesh() is None
 
 # the output side's device backends (their plain versions on the CPU)
 from describealign_tpu_torch.alignment.fit import solve_l1_fit
