@@ -6,6 +6,8 @@ benchmark scale): 1320 s of speech-like content, a 202 s lead-in and 8
 narration inserts of 12 s, seed 42. It is built by the port's copy of the
 synthetic media generator (utils/synthmedia.py). build_batch_pairs gives
 bench.py's 8 distinct pairs of that scale for the batch path.
+build_campaign_case gives the JAX package's eight edge-case structures of
+tests/test_reference_parity.py (music beds, PAL rate, silences, ...).
 """
 import hashlib
 import os
@@ -122,3 +124,118 @@ def checksum(video, audio):
     for x in (video, audio):
         h.update(np.ascontiguousarray(x).tobytes())
     return h.hexdigest()[:16]
+
+
+# The edge-case structures of tests/test_reference_parity.py:123-320, each a
+# regression pinned by an earlier round (see the docstrings there), in the
+# order they stand there
+CAMPAIGN_CASES = ("skip_heavy", "long_mixed", "noninteger_offsets",
+                  "low_similarity", "music_bed_short_segments",
+                  "music_bed_short_first_segment",
+                  "quiet_silence_boundary_skip", "pal_rate")
+
+
+def _quantize(x):
+    return _to_i16(np.round(x))[None, :]
+
+
+def _cut_and_insert(content, lead, cuts, inserts):
+    """lead, then content with inserts[k] placed at cuts[k] seconds."""
+    from .utils.synthmedia import SR
+    pieces, cursor = [lead], 0.0
+    for cut, insert in zip(cuts, inserts):
+        pieces.append(content[int(cursor * SR):int(cut * SR)])
+        pieces.append(insert)
+        cursor = cut
+    pieces.append(content[int(cursor * SR):])
+    return np.concatenate(pieces)
+
+
+def build_campaign_case(name):
+    """(video, audio) int16 PCM of shape (1, samples) of one of
+    CAMPAIGN_CASES, built from the same seeds and draws as the JAX
+    package's test (its _quantize, as int16)."""
+    from scipy.signal import resample_poly
+
+    from .utils.synthmedia import SR, music_bed, speech_like
+    if name == "skip_heavy":
+        content = speech_like(80.0, seed=34)
+        cuts = (12.0, 25.0, 37.0, 52.0, 64.0, 71.0)
+        audio = _cut_and_insert(
+            content, speech_like(5.0, seed=1034, amp=5000.0), cuts,
+            [speech_like(2.0 + (k % 3), seed=4034 + k, amp=5000.0)
+             for k in range(len(cuts))])
+        return _quantize(content), _quantize(audio)
+    if name == "long_mixed":
+        content = speech_like(240.0, seed=36)
+        # the video plays the second half 2% fast
+        half = int(120 * SR)
+        video = np.concatenate([content[:half],
+                                resample_poly(content[half:], 100, 102)])
+        cuts = (40.0, 95.0, 150.0, 205.0)
+        audio = _cut_and_insert(
+            content, speech_like(12.0, seed=1036, amp=5000.0), cuts,
+            [speech_like(3.0 + k, seed=6036 + k, amp=5000.0)
+             for k in range(len(cuts))])
+        return _quantize(video), _quantize(audio)
+    if name == "noninteger_offsets":
+        content = speech_like(100.312, seed=503)
+        cuts, durs = (35.14, 55.67, 79.24), (5.24, 3.85, 3.82)
+        audio = _cut_and_insert(
+            content, speech_like(17.4376, seed=503 + 9001, amp=5000.0), cuts,
+            [speech_like(d, seed=503 + 9100 + k, amp=5000.0)
+             for k, d in enumerate(durs)])
+        return _quantize(content), _quantize(audio)
+    if name == "low_similarity":
+        shared = speech_like(40.0, seed=35)
+        video = np.concatenate([shared[:int(20 * SR)],
+                                speech_like(20.0, seed=5035),
+                                shared[int(20 * SR):]])
+        audio = np.concatenate([speech_like(6.0, seed=1035, amp=5000.0),
+                                shared])
+        return _quantize(video), _quantize(audio)
+    if name == "music_bed_short_segments":
+        content = speech_like(62.0, seed=77) + 0.67 * music_bed(62.0,
+                                                                seed=577)
+        cuts = (10.3, 22.6, 43.0)
+        audio = _cut_and_insert(
+            content, speech_like(9.0, seed=1077, amp=5000.0), cuts,
+            [speech_like(d, seed=s, amp=5000.0)
+             for d, s in ((7.1, 2077), (6.6, 3077), (7.1, 4077))])
+        return _quantize(content), _quantize(audio)
+    if name == "music_bed_short_first_segment":
+        content = speech_like(86.15, seed=917) + 0.41 * music_bed(86.15,
+                                                                  seed=1417)
+        audio = _cut_and_insert(
+            content, speech_like(5.06, seed=2417, amp=5000.0), (10.02,),
+            [speech_like(5.57, seed=3417, amp=5000.0)])
+        return _quantize(content), _quantize(audio)
+    if name == "quiet_silence_boundary_skip":
+        content = speech_like(160.0, seed=911)
+        # near-silent spans faded in and out; the second ends at the first
+        # cut
+        for at, dur in ((42.0, 9.0), (104.0, 16.0), (131.0, 8.0)):
+            i0, i1 = int(at * SR), int((at + dur) * SR)
+            fade = min(2205, (i1 - i0) // 4)
+            ramp = np.linspace(1.0, 0.0, fade)
+            content[i0:i0 + fade] *= ramp
+            content[i0 + fade:i1 - fade] *= 0.0
+            content[i1 - fade:i1] *= ramp[::-1]
+        cuts, durs = (120.3, 142.9), (5.9, 3.3)
+        audio = _cut_and_insert(
+            content, speech_like(18.5, seed=1911, amp=5000.0), cuts,
+            [speech_like(d, seed=2911 + k, amp=5000.0)
+             for k, d in enumerate(durs)])
+        return _quantize(content), _quantize(audio)
+    if name == "pal_rate":
+        # 25/24 under a 0.6-ratio music bed
+        content = speech_like(60.0, seed=47) + 0.6 * music_bed(60.0,
+                                                               seed=547)
+        slowed = resample_poly(content, 25, 24)
+        audio = np.concatenate([speech_like(5.0, seed=1047, amp=5000.0),
+                                slowed[:int(30 * SR)],
+                                speech_like(4.0, seed=2047, amp=5000.0),
+                                slowed[int(30 * SR):]])
+        return _quantize(content), _quantize(audio)
+    raise ValueError(f"unknown campaign case {name!r}; one of "
+                     f"{CAMPAIGN_CASES}")

@@ -7,9 +7,9 @@
 
 The matcher runs on the GPU (CUDA): there is no device flag, and without
 CUDA the run fails with an error naming it. --fit_backend device runs the
-fit's ADMM on the same GPU. The port has no GUI, so with
-no arguments it prints the JAX package's "Can't launch GUI" message and the
-usage.
+fit's ADMM on the same GPU. With no arguments the GUI starts (gui/app.py,
+when wxPython imports); without wxPython the JAX package's "Can't launch
+GUI" message and the usage are printed.
 """
 import argparse
 import os
@@ -23,8 +23,17 @@ PROG = 'describealign-tpu-torch'
 def command_line_interface(argv=None):
     argv = sys.argv if argv is None else [PROG] + list(argv)
     if len(argv) < 2:
-        print("Can't launch GUI and arguments missing.\n"
-              "GUI dependencies missing.")
+        try:
+            from .gui.app import run_gui
+        except ImportError:
+            run_gui = None
+        if run_gui is not None:
+            print('No input arguments detected, starting GUI...')
+            run_gui()
+            sys.exit(0)
+        else:
+            print("Can't launch GUI and arguments missing.\n"
+                  "GUI dependencies missing.")
 
     parser = argparse.ArgumentParser(
         description="Replaces a video's sound with an audio description.",

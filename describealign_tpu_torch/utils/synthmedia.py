@@ -1,5 +1,5 @@
 """Synthetic audio-description pair generator (tests + benchmarks), a copy
-of describealign_tpu/utils/synthmedia.py without the music bed.
+of describealign_tpu/utils/synthmedia.py.
 
 Builds a "video soundtrack" of speech-like modulated noise plus a
 "description track" containing the same content with narration segments
@@ -31,6 +31,31 @@ def speech_like(seconds, seed, amp=6000.0):
     env *= 0.55 + 0.45 * np.sin(2 * np.pi * phrase_rate * t
                                 + rng.uniform(0, 6.28)) ** 2
     return (amp * env * x / np.std(x)).astype(np.float64)
+
+
+def music_bed(seconds, seed, amp=6000.0, motif_seconds=None):
+    """Tonal, repetitive 'music bed': a looped chord motif with beat-rate
+    percussive envelopes and a slow melody. The motif period creates long
+    self-similar stretches - exactly where the coarse DP's fake ridges
+    live - while the melody/noise keep it from being strictly periodic.
+    Used by the parity campaign's music-bed scenarios."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * SR)
+    motif_s = motif_seconds or float(rng.uniform(3.0, 8.0))
+    m = int(motif_s * SR)
+    t = np.arange(m) / SR
+    root = rng.uniform(110.0, 220.0)
+    chord = sum(np.sin(2 * np.pi * root * r * t + rng.uniform(0, 6.28)) * a
+                for r, a in ((1.0, 1.0), (1.5, 0.7), (2.0, 0.5), (3.0, 0.25)))
+    beat = max(1, m // int(rng.integers(4, 9)))
+    env = 0.4 + 0.6 * np.exp(-(np.arange(m) % beat) / (0.08 * SR))
+    motif = chord * env
+    base = np.tile(motif, -(-n // m))[:n]
+    tt = np.arange(n) / SR
+    melody = np.sin(2 * np.pi * (root * 2) * tt
+                    + 3 * np.sin(2 * np.pi * tt / rng.uniform(7.0, 13.0)))
+    sig = base + 0.5 * melody + 0.15 * rng.standard_normal(n)
+    return (amp * sig / np.std(sig)).astype(np.float64)
 
 
 def build_pair(content_seconds=45.0, narration=((20.0, 3.0),), lead_in=0.0,

@@ -441,3 +441,41 @@ def test_last_device_modules_on_card(cuda_device):
         np.testing.assert_allclose(g[0], w[0], atol=1e-6)
         np.testing.assert_allclose(g[1], w[1], atol=1e-6)
         assert abs(g[2] - w[2]) < 1e-9
+
+
+def test_gui_worker_on_card(cuda_device, tmp_path):
+    """The GUI's combiner on the card: run_combine_to_queue on its default
+    device ('cuda') in the spawned child gui.core.start_worker starts (as
+    CombineFrame does), on a 14-s stereo WAV pair in stretch mode. The
+    child exits 0, no transcript line is tagged error, and the output WAV
+    and the report are written."""
+    import queue as queue_mod
+    import time
+
+    from describealign_tpu_torch.gui import core
+    from describealign_tpu_torch.media.decode import write_wav
+    video, audio, _ = build_pair(content_seconds=12.0, narration=(),
+                                 lead_in=2.0, seed=5, channels=2)
+    write_wav(tmp_path / "film.wav", video)
+    write_wav(tmp_path / "desc.wav", audio)
+    settings = dict(stretch_audio=True, prepend="ad_",
+                    no_pitch_correction=False,
+                    output_dir=str(tmp_path / "out"),
+                    alignment_dir=str(tmp_path / "plots"))
+    q, worker = core.start_worker([str(tmp_path / "film.wav")],
+                                  [str(tmp_path / "desc.wav")], settings)
+    transcript, deadline = core.TranscriptModel(), time.monotonic() + 300
+    while worker.is_alive() or not q.empty():
+        try:
+            transcript.feed(q.get(timeout=0.2))
+        except queue_mod.Empty:
+            if time.monotonic() > deadline:
+                worker.terminate()
+                raise TimeoutError("the combine worker did not finish")
+    worker.join()
+    assert worker.exitcode == 0
+    tags = [core.classify_line(ln) for ln in transcript.lines]
+    assert "error" not in tags, transcript.text()
+    assert transcript.lines[-1].startswith("All files processed.")
+    assert (tmp_path / "out" / "ad_film.wav").stat().st_size > 1e5
+    assert "Start Offset:" in (tmp_path / "plots" / "film.txt").read_text()

@@ -5,7 +5,9 @@ and runs the port's align_from_pcm (both feature paths, the mel frontend),
 features_for, sequence-sharded features, the batch (with and without a
 device list), the device fit, phase vocoder and resampler, then combine()
 (with the device stretch backends) and the CLI's --version, on a small
-pair on the CPU.
+pair on the CPU; then the config and the GUI's headless core (the
+fallback path without platformdirs), music_bed and a campaign case, and
+the dryrun twin (scripts/torch_dryrun_multichip.py) on two CPU devices.
 chip_smoke.py imports only the port, torch and numpy."""
 import ast
 import os
@@ -111,6 +113,29 @@ assert "Start Offset:" in open(os.path.join(tmp, "p", "film.txt")).read()
 assert not os.path.exists(os.path.join(tmp, "p", "film.png"))
 assert os.path.getsize(os.path.join(tmp, "o", "ad_film.wav")) > 1e5
 assert "version: " in printed and "content hash: " in printed, printed
+
+# the config and the GUI's headless core (platformdirs is blocked, so the
+# ~/.config fallback), music_bed, a campaign case, the dryrun twin
+import runpy
+from describealign_tpu_torch import config
+from describealign_tpu_torch.bench_pair import build_campaign_case
+from describealign_tpu_torch.gui import core
+from describealign_tpu_torch.utils.synthmedia import music_bed
+os.environ["HOME"] = tmp
+path = config.get_config_path()
+assert path == config.Path(tmp) / ".config" / "describealign-tpu-torch" / \
+    "config.ini", path
+assert core.SettingsModel(path).values["prepend"] == "ad_"
+assert path.exists()
+bed = music_bed(2.0, seed=577)
+assert bed.shape == (88200,) and np.isfinite(bed).all()
+# (a case without scipy's resample_poly: scipy probes sys.modules["jax"],
+# which the blocking above sets to None)
+pv, pa = build_campaign_case("music_bed_short_segments")
+assert pv.dtype == pa.dtype == np.int16 and pa.shape[1] > pv.shape[1]
+twin = runpy.run_path(os.path.join("scripts", "torch_dryrun_multichip.py"))
+dry = twin["dryrun"](["cpu"] * 2)
+assert all(dry["interior"].values()) and dry["candidates"] > 0
 loaded = [m for m in sys.modules
           if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None]
 assert not loaded, loaded
@@ -152,8 +177,9 @@ def test_chip_smoke_imports_only_the_port():
     tops = {n.split(".")[0] for n in names}
     assert "describealign_tpu_torch" in tops
     assert tops <= {"describealign_tpu_torch", "torch", "numpy", "contextlib",
-                    "io", "json", "os", "subprocess", "sys", "tempfile",
-                    "threading", "time", "warnings", "wave"}, tops
+                    "hashlib", "io", "json", "os", "queue", "shutil",
+                    "subprocess", "sys", "tempfile", "threading", "time",
+                    "warnings", "wave"}, tops
 
 
 def _imported_tops(path):

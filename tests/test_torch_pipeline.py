@@ -419,8 +419,8 @@ def test_cli_version(capsys):
 
 
 def test_cli_usage_without_arguments(capsys):
-    """No GUI in the port: the JAX CLI's message for a missing GUI, then
-    the usage line."""
+    """Without wxPython the GUI cannot start: the JAX CLI's message for a
+    missing GUI, then the usage line."""
     out = _run(tcli.command_line_interface, capsys, [])
     assert out == ("Can't launch GUI and arguments missing.\n"
                    "GUI dependencies missing.\n"
