@@ -35,9 +35,21 @@ Needs one CUDA device and nvcc; exits non-zero without them. Phases:
    (rows of -1e30, maxima at 2^22 and above). The same as the bench map's
    on one 64-row film tile at D = 61,438 from a non-zero checkpoint (in
    phase 5a);
+2c. the coarse score map's kernel vs plain: block_scores
+   (csrc/coarse_map.cu) against block_scores_plain on the bench pair's
+   whole map (nf 3, K 128, one launch) and on its 5-stream map (K 256),
+   and (in phase 5a) on the film's tiles 0 and 1 with and without track
+   1 suppressed: the map within MAP_RTOL / MAP_ATOL, suppressed lanes
+   equal, both k-best DP tracks from the kernel's map equal to those from
+   the plain map (on a film tile: dp_forward + dp_backtrace from a zero
+   row). CUDA-event times of the kernel, the plain version and the GEMM
+   alone (one torch.matmul of the 7 phases' product, no skew max: no
+   PyTorch call computes the whole function) beside the bounds: 3xTF32,
+   fp32 FFMA and the bytes;
 3. main path: describealign_tpu_torch align_from_pcm on the bench pair
    (22-min video, 27-min description), one warm-up and 3 timed runs, a
-   per-stage split, kernel launch counts, peak device memory, and the check
+   per-stage split, kernel launch counts (coarse_score_map, fine_match
+   and the DP's), peak device memory, and the check
    against the JAX result;
 4. the user's entry point: `python -m describealign_tpu_torch video.wav
    audio.wav --stretch_audio --yes ...` in a subprocess on the bench pair
@@ -232,6 +244,11 @@ GATE_PER = 20000
 # either side may keep either. Looked for only where asked (phase 6)
 TIE_REL = 1e-4
 REPS = 5                    # timed launches per kernel-vs-plain measurement
+# coarse score map, kernel vs plain: 3xTF32 products summed in another
+# order than cuBLAS's fp32 GEMM; the bar of tests/test_torch_coarse.py's
+# score-map parity (XLA vs torch)
+MAP_RTOL = 1e-5
+MAP_ATOL = 1e-4
 # NVIDIA H100 SXM peaks (data sheet, dense, at 700 W)
 TF32_FLOPS = 495e12         # tensor cores, TF32
 FP32_FLOPS = 67e12          # FFMA outside the tensor cores
@@ -260,10 +277,11 @@ def cuda_ms(fn, reps=REPS):
 
 def kernel_counts(reset=False):
     """{kernel: launches so far}; reset sets every count to 0 first."""
-    from describealign_tpu_torch.ops import (coarse_dp, features_kernel,
-                                             fine_kernel, fit_kernel,
-                                             pv_kernel)
-    wrappers = {"fine_match": fine_kernel.fine_match,
+    from describealign_tpu_torch.ops import (coarse_dp, coarse_map,
+                                             features_kernel, fine_kernel,
+                                             fit_kernel, pv_kernel)
+    wrappers = {"coarse_score_map": coarse_map.block_scores,
+                "fine_match": fine_kernel.fine_match,
                 "dp_forward": coarse_dp.dp_forward,
                 "dp_backtrace": coarse_dp.dp_backtrace,
                 "pcm_frontend": features_kernel.pcm_frontend_cuda,
@@ -349,9 +367,10 @@ def backtrace_guard(n, d, device, smi):
                              "on rows that trip the guard")
 
 
-def coarse_descriptors(fa, na, fv, nv, device):
-    """(audio descriptors, the 7 video phases' descriptors, audio mask) of
-    the coarse pass, from padded (5, Npad) f32 feature stacks."""
+def coarse_descriptors(fa, na, fv, nv, device, nf=None):
+    """(audio descriptors, the 7 video phases' (7, Kv, K) descriptors,
+    audio mask) of the coarse pass over nf streams (None: COARSE_STREAMS),
+    from padded (5, Npad) f32 feature stacks."""
     from describealign_tpu_torch.alignment import api, matching, preprocess
     feats_a = api._upload(fa, device).float()
     feats_v = api._upload(fv, device).float()
@@ -359,11 +378,109 @@ def coarse_descriptors(fa, na, fv, nv, device):
     ms_v, norms_v = preprocess.preprocess_features(feats_v)
     a_mask = preprocess.valid_audio_mask(feats_a[0], na)
     v_mask = preprocess.valid_video_mask(feats_v[0], nv)
-    nf = matching.COARSE_STREAMS
+    nf = nf or matching.COARSE_STREAMS
     desc_a = matching._coarse_descriptors(ms_a[:nf], norms_a[:nf], a_mask)
-    desc_v = [matching._coarse_descriptors(ms_v[:nf], norms_v[:nf], v_mask,
-                                           p) for p in matching.SUB_LANE_SHIFTS]
+    desc_v = torch.stack([matching._coarse_descriptors(
+        ms_v[:nf], norms_v[:nf], v_mask, p)
+        for p in matching.SUB_LANE_SHIFTS])
     return desc_a, desc_v, a_mask
+
+
+def k_best_of(p_map):
+    """Both k-best tracks' paths and scores of the DP over a score map, the
+    second with the first suppressed (matching._k_best_tracks on a given
+    map)."""
+    from describealign_tpu_torch.alignment import matching
+    lanes = torch.arange(p_map.shape[1], dtype=torch.int32,
+                         device=p_map.device)[None, :]
+    paths, scores = [], []
+    for _ in range(matching.N_TRACKS):
+        path, score = matching._coarse_dp(p_map)
+        paths.append(path)
+        scores.append(float(score))
+        p_map = torch.where(
+            torch.abs(lanes - path[:, None]) <= matching.SUPPRESS_LANES,
+            torch.tensor(-1e30, dtype=torch.float32, device=p_map.device),
+            p_map)
+    return paths, scores
+
+
+def map_vs_plain(label, desc_a, desc_v, b0, n, suppress, smi, timed=True):
+    """coarse_score_map (block_scores, csrc/coarse_map.cu) against
+    block_scores_plain on blocks [b0, b0 + n): the map within MAP_RTOL /
+    MAP_ATOL and the suppressed lanes equal, else it fails. With timed,
+    CUDA-event times of the kernel, the plain version and the GEMM alone
+    (one torch.matmul of the 7 phases' product) beside the bounds. Returns
+    (kernel map, plain map, record)."""
+    from describealign_tpu_torch.ops import coarse_map
+    kv, k = desc_v.shape[1], desc_v.shape[2]
+    got = coarse_map.block_scores(desc_a, desc_v, b0, n, suppress)
+    torch.cuda.synchronize()
+    want = coarse_map.block_scores_plain(desc_a, desc_v, b0, n, suppress)
+    live = want != -1e30
+    err = (got - want).abs()
+    ok = (torch.equal(got == -1e30, ~live)
+          and bool(torch.all(err <= MAP_ATOL + MAP_RTOL * want.abs())))
+    max_err = float(err[live].max())
+    max_rel = float((err[live] / want[live].abs().clamp_min(1e-6)).max())
+    fma, nbytes = coarse_map.block_scores_work(
+        n, kv, k, 0 if suppress is None else suppress.shape[0])
+    rec = dict(n=n, kv=kv, k=k, err=max_err, rel=max_rel, fma=fma,
+               suppressed=suppress is not None,
+               tf32_ms=6 * fma / TF32_FLOPS * 1e3,
+               ffma_ms=2 * fma / FP32_FLOPS * 1e3,
+               bytes_ms=nbytes / HBM_BYTES_S * 1e3)
+    timing = ""
+    if timed:
+        rows = desc_a[b0 * 10:(b0 + n) * 10]
+        flat = desc_v.reshape(-1, k)
+        rec["ms"] = cuda_ms(lambda: coarse_map.block_scores(
+            desc_a, desc_v, b0, n, suppress))
+        rec["plain_ms"] = cuda_ms(lambda: coarse_map.block_scores_plain(
+            desc_a, desc_v, b0, n, suppress), 1)
+        rec["gemm_ms"] = cuda_ms(lambda: torch.matmul(rows, flat.T), 1)
+        timing = (f" | kernel {rec['ms']:.4f} ms, plain "
+                  f"{rec['plain_ms']:.3f} ms, the GEMM alone (one "
+                  f"torch.matmul) {rec['gemm_ms']:.3f} ms | "
+                  f"{fma:.4g} FMA: 3xTF32 bound {rec['tf32_ms']:.4f} ms "
+                  f"({rec['tf32_ms'] / rec['ms']:.1%}), FFMA "
+                  f"{rec['ffma_ms']:.4f} ms ({rec['ffma_ms'] / rec['ms']:.1%})"
+                  f", bytes {nbytes / 1e6:.1f} MB {rec['bytes_ms']:.4f} ms")
+    print(f"[2c coarse map kernel vs plain] {label} ({n} blocks x {kv} "
+          f"lanes, K {k}{', suppressed' if suppress is not None else ''}): "
+          f"map {'within' if ok else 'OUTSIDE'} rtol {MAP_RTOL} / atol "
+          f"{MAP_ATOL} (max abs err {max_err:.3g}, rel {max_rel:.3g})"
+          f"{timing} ({smi})", flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: coarse_score_map disagrees with its "
+                             f"plain version")
+    return got, want, rec
+
+
+def phase_coarse_map(fa, na, fv, nv, device, smi):
+    """Phase 2c on the bench pair: its whole map at nf 3 (K 128) and nf 5
+    (K 256), each in one launch, against the plain version, and both
+    k-best tracks from each map. Returns {nf: map_vs_plain's record}."""
+    out = {}
+    for nf in (3, 5):
+        desc_a, desc_v, _ = coarse_descriptors(fa, na, fv, nv, device, nf)
+        nb = desc_a.shape[0] // 10
+        got, want, rec = map_vs_plain(f"bench pair map, nf {nf}", desc_a,
+                                      desc_v, 0, nb, None, smi)
+        (kp, ks), (pp, ps) = k_best_of(got), k_best_of(want)
+        same = all(torch.equal(a, b) for a, b in zip(kp, pp))
+        rec["tracks_equal"] = same
+        print(f"[2c coarse map tracks] bench pair, nf {nf}: both k-best "
+              f"tracks from the kernel's map {'equal' if same else 'DIFFER'}"
+              f" to the plain map's; scores {ks} vs {ps} ({smi})",
+              flush=True)
+        if not same or not np.allclose(ks, ps, rtol=1e-5, atol=0):
+            raise AssertionError(f"bench pair nf {nf}: the DP tracks of the "
+                                 f"kernel's map differ from the plain map's")
+        out[nf] = rec
+        del desc_a, desc_v, got, want
+    torch.cuda.empty_cache()
+    return out
 
 
 def dp_tracks_vs_plain(desc_a, desc_v, label, smi, tag="2b"):
@@ -551,8 +668,9 @@ import describealign_tpu_torch.media.decode as decode
 import describealign_tpu_torch.media.mux as mux
 import describealign_tpu_torch.report.plots as plots
 import describealign_tpu_torch.stretch.segments as segments
-from describealign_tpu_torch.ops import (coarse_dp, features_kernel,
-                                         fine_kernel, fit_kernel, pv_kernel)
+from describealign_tpu_torch.ops import (coarse_dp, coarse_map,
+                                         features_kernel, fine_kernel,
+                                         fit_kernel, pv_kernel)
 stages = {}
 def timed(mod, name, stage):
     fn = getattr(mod, name)
@@ -569,7 +687,8 @@ timed(segments, "replace_aligned_segments", "stretch")
 timed(mux, "write_replaced_media_to_disk", "write")
 timed(plots, "plot_alignment", "report")
 sys.argv = ["describealign_tpu_torch"] + sys.argv[1:]
-wrappers = {"fine_match": fine_kernel.fine_match,
+wrappers = {"coarse_score_map": coarse_map.block_scores,
+            "fine_match": fine_kernel.fine_match,
             "dp_forward": coarse_dp.dp_forward,
             "dp_backtrace": coarse_dp.dp_backtrace,
             "pcm_frontend": features_kernel.pcm_frontend_cuda,
@@ -647,6 +766,7 @@ def phase_combine(v, a, smi, n_chunks, wav_dir):
         "median rate change": abs(got[2] - want[2]) <= 1e-4 * 100,
         "printed lines": printed == expected["printed"] and len(no_plot) <= 1,
         "launches": stats["launches"] == {
+            "coarse_score_map": 1,
             "fine_match": n_chunks * matching.N_TRACKS,
             "dp_forward": matching.N_TRACKS,
             "dp_backtrace": matching.N_TRACKS,
@@ -693,10 +813,11 @@ def phase_film(device, smi):
     """Phase 5: the feature film on the streamed coarse DP. Returns (the
     kernels' launches in the end-to-end run, [(chunk b0, track,
     *kernel_vs_plain row)] on the film's first and last chunks, the DP
-    kernels' dp_vs_plain row on one film tile)."""
+    kernels' dp_vs_plain row on one film tile, map_vs_plain's records of
+    the film's tiles 0 and 1)."""
     from describealign_tpu_torch import film_pair
     from describealign_tpu_torch.alignment import api, matching, preprocess
-    from describealign_tpu_torch.ops import coarse_dp
+    from describealign_tpu_torch.ops import coarse_dp, coarse_map
     with open(FILM_EXPECTED) as f:
         expected = json.load(f)
     t0 = time.perf_counter()
@@ -741,10 +862,34 @@ def phase_film(device, smi):
           f"{'equal' if same else 'DIFFER'} ({smi})", flush=True)
     if not same:
         raise AssertionError("streamed and materialized DPs disagree")
+    # 2c: the score map's kernel on the film's tiles 0 and 1, alone and with
+    # track 1 suppressed (the streamed DP's second pass), and the DP over
+    # each tile from a zero row on the kernel's and on the plain tile
+    map_rows = []
+    zero = torch.zeros(kv, device=device)
+    for c in (0, 1):
+        for sup in (None, sp[0][None].contiguous()):
+            got, want, rec = map_vs_plain(
+                f"film tile {c}", desc_a, desc_v, c * matching.COARSE_CHUNK,
+                matching.COARSE_CHUNK, sup, smi, timed=c == 1)
+            paths = [coarse_dp.dp_backtrace(None, coarse_dp.dp_forward(
+                zero, tile)) for tile in (got, want)]
+            rec["tracks_equal"] = torch.equal(*paths)
+            print(f"[2c coarse map tracks] film tile {c}"
+                  f"{', suppressed' if sup is not None else ''}: the DP "
+                  f"path over the kernel's tile "
+                  f"{'equal' if rec['tracks_equal'] else 'DIFFERS'} to the "
+                  f"plain tile's ({smi})", flush=True)
+            if not rec["tracks_equal"]:
+                raise AssertionError(f"film tile {c}: the DP path over the "
+                                     f"kernel's tile differs")
+            map_rows.append(rec)
+            del got, want
     # the DP kernels on the film's second 64-block tile, from the cost row
     # the first tile leaves (a non-zero checkpoint) and a given last lane
-    tile0 = matching._chunk_scores(desc_a, desc_v, 0)
-    tile1 = matching._chunk_scores(desc_a, desc_v, 1)
+    chunk = matching.COARSE_CHUNK
+    tile0 = coarse_map.block_scores(desc_a, desc_v, 0, chunk)
+    tile1 = coarse_map.block_scores(desc_a, desc_v, chunk, chunk)
     ckpt = coarse_dp.dp_forward(torch.zeros(kv, device=device), tile0)[-1]
     dp_row = dp_vs_plain("film tile 1 from tile 0's last row", ckpt, tile1,
                          sp[0][2 * matching.COARSE_CHUNK].long(), smi)
@@ -796,8 +941,10 @@ def phase_film(device, smi):
                    and abs(margins[0] / expected["margin"] - 1) <= 1e-5),
         "no WARNING": "WARNING" not in printed,
         "no retry": "rechecking alignment" not in printed,
-        # the streamed DP runs every tile forward twice and back once
+        # the streamed DP scores every tile twice (forward and back) and
+        # runs it forward twice and back once
         "launches": launches == {
+            "coarse_score_map": 2 * tiles * matching.N_TRACKS,
             "fine_match": n_chunks * matching.N_TRACKS,
             "dp_forward": 2 * tiles * matching.N_TRACKS,
             "dp_backtrace": tiles * matching.N_TRACKS,
@@ -819,7 +966,7 @@ def phase_film(device, smi):
                       for k, ok in checks.items()), flush=True)
     if not all(checks.values()):
         raise AssertionError(f"the film disagrees with JAX: {checks}")
-    return launches, rows, dp_row
+    return launches, rows, dp_row, map_rows
 
 
 def host_waits(fn):
@@ -936,7 +1083,8 @@ def phase_batch(device, smi):
     n_chunks = sum(-(-matching.nb_for(max(api._bucket_pad(sv // 210),
                                           api._bucket_pad(sa // 210)))
                      // matching.FINE_CHUNK) for sv, sa in lens)
-    want = {"fine_match": n_chunks * matching.N_TRACKS,
+    want = {"coarse_score_map": 8,
+            "fine_match": n_chunks * matching.N_TRACKS,
             "dp_forward": 8 * matching.N_TRACKS,
             "dp_backtrace": 8 * matching.N_TRACKS,
             "pcm_frontend": 0, "polyphase_blur": 0,
@@ -1311,7 +1459,8 @@ def phase_device_features(v, a, host_split, batch, smi):
     peak = torch.cuda.max_memory_allocated()
     # per run: K1 once and the cascade once per stream, the fine
     # pass once per track (over all blocks), the DP once per track
-    want = {"fine_match": 3 * matching.N_TRACKS,
+    want = {"coarse_score_map": 3,
+            "fine_match": 3 * matching.N_TRACKS,
             "dp_forward": 3 * matching.N_TRACKS,
             "dp_backtrace": 3 * matching.N_TRACKS,
             "pcm_frontend": 3 * 2,
@@ -1399,6 +1548,7 @@ def phase_device_features(v, a, host_split, batch, smi):
     checks = {"batch == single": all(same),
               "planted": planted_ok,
               "launches": batch_launches == {
+                  "coarse_score_map": 8,
                   "fine_match": 8 * matching.N_TRACKS,
                   "dp_forward": 8 * matching.N_TRACKS,
                   "dp_backtrace": 8 * matching.N_TRACKS,
@@ -2008,7 +2158,8 @@ def phase_mel(v, a, n_chunks, smi):
         split_s = time.perf_counter() - t0
         checks, _, line = against_jax("bench pair", result,
                                       expected["host"])
-        want = {"fine_match": n_chunks * matching.N_TRACKS,
+        want = {"coarse_score_map": 1,
+                "fine_match": n_chunks * matching.N_TRACKS,
                 "dp_forward": matching.N_TRACKS,
                 "dp_backtrace": matching.N_TRACKS,
                 "pcm_frontend": 0, "polyphase_blur": 0,
@@ -2064,8 +2215,9 @@ def phase_mel(v, a, n_chunks, smi):
               "launches": dev_launches["pcm_frontend"] == 2
               and dev_launches["polyphase_blur"] == 4
               and (raised is not None or min(
-                  dev_launches[k] for k in ("fine_match", "dp_forward",
-                                            "dp_backtrace")) > 0),
+                  dev_launches[k] for k in ("coarse_score_map", "fine_match",
+                                            "dp_forward", "dp_backtrace"))
+                  > 0),
               "raise": raised == want_raise}
     line = f"align() raised {raised}, JAX raised {want_raise}"
     if result is not None and not want_raise:
@@ -2205,14 +2357,16 @@ def phase_sharded_batch(batch, smi):
             errs.append(err * 1e3)
         n_groups = -(-n_pairs // len(mesh)) if mesh else None
         checks[f"{route} quiet"] = out.getvalue() == ""
-        # the meshes run the single-shot matcher: one fine pass and one DP
-        # per track and pair; the serial path, phase 6's streamed matcher
+        # the meshes run the single-shot matcher: one score map per pair,
+        # one fine pass and one DP per track and pair; the serial path,
+        # phase 6's streamed matcher
         per = (2 * n_pairs if mesh else None)
         checks[f"{route} launches"] = (
             launches[route]["pcm_frontend"] == 0
             and all(launches[route][k] == per if per else
                     launches[route][k] > 0
-                    for k in ("fine_match", "dp_forward", "dp_backtrace")))
+                    for k in ("fine_match", "dp_forward", "dp_backtrace"))
+            and launches[route]["coarse_score_map"] == n_pairs)
         rows.append(f"{route}"
                     f"{f' ({n_groups} groups)' if n_groups else ''}: "
                     f"{wall_s:.3f} s = {minutes / wall_s:.1f} "
@@ -2325,6 +2479,7 @@ def phase_gui(video_wav, audio_wav, wav_dir, smi, n_chunks):
             "in-process median rate change":
                 abs(got[2] - want[2]) <= 1e-4 * 100,
             "in-process launches": launches == {
+                "coarse_score_map": 1,
                 "fine_match": n_chunks * matching.N_TRACKS,
                 "dp_forward": matching.N_TRACKS,
                 "dp_backtrace": matching.N_TRACKS,
@@ -2441,7 +2596,8 @@ def phase_campaign(device, smi):
         t0 = time.perf_counter()
         (x, y, sim, path, slope, margin), printed = align_quiet(v, a, device)
         align_s = time.perf_counter() - t0
-        for k, c in kernel_counts().items():
+        counts = kernel_counts()
+        for k, c in counts.items():
             launches[k] = launches.get(k, 0) + c
         jx = np.asarray(want["audio_times_s"])
         jy = np.asarray(want["video_times_s"])
@@ -2483,6 +2639,9 @@ def phase_campaign(device, smi):
                 "slope": abs(slope - want["median_slope"]) <= 1e-4,
                 "retry": retry == want["retry"], "lis": lis_equal,
                 "path": path_ok,
+                # one score map per coarse pass, two with the retry
+                "coarse map launched": counts["coarse_score_map"]
+                == (2 if retry else 1),
                 "printed": printed == want["printed"]}
         checks[name] = all(case.values())
         rows.append(
@@ -2513,8 +2672,10 @@ def phase_campaign(device, smi):
 # runpy, with the kernels' launch counts printed as one JSON line after it.
 DRYRUN_RUN = """
 import json, runpy, sys
-from describealign_tpu_torch.ops import coarse_dp, features_kernel, fine_kernel
-wrappers = {"fine_match": fine_kernel.fine_match,
+from describealign_tpu_torch.ops import (coarse_dp, coarse_map,
+                                         features_kernel, fine_kernel)
+wrappers = {"coarse_score_map": coarse_map.block_scores,
+            "fine_match": fine_kernel.fine_match,
             "dp_forward": coarse_dp.dp_forward,
             "dp_backtrace": coarse_dp.dp_backtrace,
             "pcm_frontend": features_kernel.pcm_frontend_cuda,
@@ -2533,8 +2694,8 @@ def phase_dryrun(smi):
     [cuda:0] * 2 (mesh data 2 x seq 1) and [cuda:0] * 4 (2 x 2): exit 0
     (its interior frames bit-equal to the unsharded extractor), the JAX
     dryrun's line, and per pair K1 and K2 once per shard and once for the
-    unsharded reference, fine_match, dp_forward and dp_backtrace once per
-    track. Returns {mesh label: launches}."""
+    unsharded reference, coarse_score_map once, fine_match, dp_forward and
+    dp_backtrace once per track. Returns {mesh label: launches}."""
     out = {}
     rows, checks = [], {}
     for n in (2, 4):
@@ -2553,7 +2714,8 @@ def phase_dryrun(smi):
                                  f"{proc.stderr[-3000:]}")
         lines = proc.stdout.strip().splitlines()
         launches = json.loads(lines[-1])
-        want = {"fine_match": 2 * data, "dp_forward": 2 * data,
+        want = {"coarse_score_map": data,
+                "fine_match": 2 * data, "dp_forward": 2 * data,
                 "dp_backtrace": 2 * data,
                 "pcm_frontend": 2 * data * (seq + 1),
                 "polyphase_blur": 2 * data * (seq + 1)}
@@ -2588,9 +2750,9 @@ def main():
     from describealign_tpu_torch.alignment import api, matching
     from describealign_tpu_torch.alignment.native import native_lib
     from describealign_tpu_torch.bench_pair import build_scale_pair
-    from describealign_tpu_torch.ops import (coarse_dp, features_kernel,
-                                             fine_kernel, fit_kernel,
-                                             pv_kernel)
+    from describealign_tpu_torch.ops import (coarse_dp, coarse_map,
+                                             features_kernel, fine_kernel,
+                                             fit_kernel, pv_kernel)
 
     device = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -2598,14 +2760,15 @@ def main():
     # --- phase 1: the card and the builds --------------------------------
     t_phase = time.perf_counter()
     smi = card_line()
-    nvcc_s, dp_s, feat_s, fit_s, pv_s, gxx_s = build_all(
+    nvcc_s, dp_s, map_s, feat_s, fit_s, pv_s, gxx_s = build_all(
         fine_kernel.load_library, coarse_dp.load_library,
-        features_kernel.load_library, fit_kernel.load_library,
-        pv_kernel.load_library, native_lib)
+        coarse_map.load_library, features_kernel.load_library,
+        fit_kernel.load_library, pv_kernel.load_library, native_lib)
     print(smi)
     print(f"[1 card] {smi} | torch {torch.__version__} | CUDA "
           f"{torch.version.cuda} | nvcc fine_match.cu {nvcc_s:.2f} s, "
-          f"coarse_dp.cu {dp_s:.2f} s, features_dev.cu {feat_s:.2f} s, "
+          f"coarse_dp.cu {dp_s:.2f} s, coarse_map.cu {map_s:.2f} s (tile "
+          f"{coarse_map.kernel_config()}), features_dev.cu {feat_s:.2f} s, "
           f"fit_admm.cu {fit_s:.2f} s, pv_lock.cu {pv_s:.2f} s | g++ "
           f"host library {gxx_s:.2f} s (built side by side)", flush=True)
     t_phase = phase_done(1, t_phase, smi)
@@ -2650,6 +2813,7 @@ def main():
               f"candidates, {sets}, max abs err {err:.3g}, p99 rel "
               f"{p99:.3g}, max rel {rel:.3g}{timing} ({smi})", flush=True)
     dp_rows = phase_dp_kernels(fa, na, fv, nv, device, smi)
+    map_rows = phase_coarse_map(fa, na, fv, nv, device, smi)
     t_phase = phase_done(2, t_phase, smi)
 
     # --- phase 3: the main path ------------------------------------------
@@ -2672,7 +2836,8 @@ def main():
     launches = kernel_counts()
     peak = torch.cuda.max_memory_allocated()
     runs = 3 * (2 if "rechecking alignment" in printed else 1)
-    want = {"fine_match": runs * n_chunks * matching.N_TRACKS,
+    want = {"coarse_score_map": runs,
+            "fine_match": runs * n_chunks * matching.N_TRACKS,
             "dp_forward": runs * matching.N_TRACKS,
             "dp_backtrace": runs * matching.N_TRACKS,
             "pcm_frontend": 0, "polyphase_blur": 0,
@@ -2725,7 +2890,7 @@ def main():
 
     # --- phase 5: a feature film through the streamed coarse DP -----------
     nodes.label = "5"
-    film_launches, film_rows, film_dp = phase_film(device, smi)
+    film_launches, film_rows, film_dp, film_map = phase_film(device, smi)
     t_phase = phase_done(5, t_phase, smi)
 
     # --- phase 6: the batch of 8 -------------------------------------------
@@ -2925,6 +3090,48 @@ def main():
                 "segment_vs_host_rel": pv_rec["segment_vs_host"],
                 "library_ms": None}
 
+    def map_record():
+        # the bench pair's whole map in one launch (nf 3, K 128); the
+        # 5-stream map (K 256) and the film's tile 1 beside
+        bench, retry = map_rows[3], map_rows[5]
+        tiles = {r["suppressed"]: r for r in film_map if "ms" in r}
+        bound = max(bench["tf32_ms"], bench["bytes_ms"])
+        return {"name": "coarse_score_map",
+                "route": "cuda",
+                "source": "describealign_tpu_torch/csrc/coarse_map.cu",
+                "replaces": "describealign_tpu/alignment/matching.py:171",
+                "launches": launches["coarse_score_map"],
+                "launches_by_phase": by_phase("coarse_score_map"),
+                "max_abs_err": max(r["err"] for r in
+                                   list(map_rows.values()) + film_map),
+                "max_rel": max(r["rel"] for r in
+                               list(map_rows.values()) + film_map),
+                "ms": bench["ms"],
+                "plain_ms": bench["plain_ms"],
+                "bound_ms": bound,
+                "bound_by": ("operations" if bench["tf32_ms"]
+                             >= bench["bytes_ms"] else "bytes"),
+                "bound_share": bound / bench["ms"],
+                "bound_fp32_ms": bench["ffma_ms"],
+                "bound_bytes_ms": bench["bytes_ms"],
+                "useful_fma": bench["fma"],
+                # no PyTorch call computes the whole function; the GEMM
+                # alone is one torch.matmul of the 7 phases' product
+                "gemm_alone_ms": bench["gemm_ms"],
+                "retry_map_ms": retry["ms"],
+                "retry_map_plain_ms": retry["plain_ms"],
+                "retry_map_gemm_alone_ms": retry["gemm_ms"],
+                "retry_map_bound_ms": max(retry["tf32_ms"],
+                                          retry["bytes_ms"]),
+                **{f"film_tile{'_suppressed' if sup else ''}_{k}": r[key]
+                   for sup, r in tiles.items()
+                   for k, key in (("ms", "ms"), ("plain_ms", "plain_ms"),
+                                  ("gemm_alone_ms", "gemm_ms"))},
+                "film_tile_bound_ms": max(tiles[False]["tf32_ms"],
+                                          tiles[False]["bytes_ms"]),
+                "tile": coarse_map.kernel_config(),
+                "library_ms": None}
+
     chunk0 = [r for r in rows if r[0] == 0]
     film0 = [r for r in film_rows if r[0] == 0]
     k_ms = float(np.mean([r[4] for r in chunk0]))
@@ -2961,7 +3168,7 @@ def main():
     }, dp_record("dp_forward", 225), dp_record("dp_backtrace", 241),
         feature_record("pcm_frontend", 51),
         feature_record("polyphase_blur", 85), fit_record(),
-        pv_record()]}))
+        pv_record(), map_record()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -3,11 +3,12 @@ correlation.
 
 Port of describealign_tpu/alignment/matching.py (see its docstring for the
 design and the reference semantics). The coarse pass builds normalized
-41-frame descriptors every 21 frames, scores them all-pairs with
-`torch.matmul` in 64-block chunks, folds the 7 sub-lane video phases and
-the 10 within-block rows into a (blocks, video lanes) score map by a skew
-max, and runs an exact max-plus DP twice (k-best, the second track with
-the first suppressed). The fine pass correlates every 210-frame audio
+41-frame descriptors every 21 frames, scores them all-pairs, folds the 7
+sub-lane video phases and the 10 within-block rows into a (blocks, video
+lanes) score map by a skew max (ops/coarse_map.py: one hand-written CUDA
+kernel on the card, the plain torch GEMMs and maxima on the CPU), and runs
+an exact max-plus DP twice (k-best, the second track with the first
+suppressed). The fine pass correlates every 210-frame audio
 block against a 768-frame video band around each track with the fine
 kernel (ops/fine_kernel.py), gates the rescue track, and packs the
 candidates into the u8-quality transport rows the native LIS reads.
@@ -82,35 +83,22 @@ def _coarse_descriptors(ms, norms, mask, phase=0):
     return torch.nn.functional.pad(desc, (0, width - f * WINDOW))
 
 
-def _chunk_scores(desc_a_padded, desc_v_list, c):
-    """(COARSE_CHUNK, Kv) score tile for the blocks of chunk c: the
-    (640 x Kv) product per video phase, skew-maxed over the 10 coarse rows
+def _phase_stack(desc_v):
+    """The 7 video phases' descriptors as one contiguous (7, Kv, K) tensor
+    (a list of the phases is stacked)."""
+    if isinstance(desc_v, torch.Tensor):
+        return desc_v
+    return torch.stack(list(desc_v))
+
+
+def _block_scores_local(desc_a, desc_v):
+    """Video-coordinate block score map P[b, v] (matching.py:171-222): per
+    video phase the descriptor product, skew-maxed over the 10 coarse rows
     of each block (P[b, v] = max_p S[10b + p, v + p], zero past Kv) and
-    max-folded across phases."""
-    kv = desc_v_list[0].shape[0]
-    rows = desc_a_padded[c * COARSE_CHUNK * COARSE_PER_BLOCK:
-                         (c + 1) * COARSE_CHUNK * COARSE_PER_BLOCK]
-    out = None
-    for desc_v in desc_v_list:
-        s = torch.matmul(rows, desc_v.T).reshape(
-            COARSE_CHUNK, COARSE_PER_BLOCK, kv)
-        s = torch.nn.functional.pad(s, (0, COARSE_PER_BLOCK))
-        aligned = s[:, 0, :kv]
-        for p in range(1, COARSE_PER_BLOCK):
-            aligned = torch.maximum(aligned, s[:, p, p:p + kv])
-        out = aligned if out is None else torch.maximum(out, aligned)
-    return out
-
-
-def _block_scores_local(desc_a, desc_v_list):
-    """Video-coordinate block score map P[b, v] (matching.py:194-222)."""
-    ka = desc_a.shape[0]
-    nb = ka // COARSE_PER_BLOCK
-    nb_pad = -(-nb // COARSE_CHUNK) * COARSE_CHUNK
-    desc_a = torch.nn.functional.pad(
-        desc_a, (0, 0, 0, nb_pad * COARSE_PER_BLOCK - ka))
-    return torch.cat([_chunk_scores(desc_a, desc_v_list, c)
-                      for c in range(nb_pad // COARSE_CHUNK)])[:nb]
+    max-folded across phases, in one block_scores call over every block."""
+    from ..ops.coarse_map import block_scores
+    nb = desc_a.shape[0] // COARSE_PER_BLOCK
+    return block_scores(desc_a, _phase_stack(desc_v), 0, nb)
 
 
 def _coarse_dp(p_map):
@@ -127,28 +115,26 @@ def _coarse_dp(p_map):
     return path.to(torch.int32), cost[-1].index_select(0, path[-1:])[0]
 
 
-def _coarse_dp_streamed(desc_a, desc_v_list, nb, suppress_paths=()):
+def _coarse_dp_streamed(desc_a, desc_v, nb, suppress_paths=()):
     """Memory-bounded twin of _block_scores_local + _coarse_dp
     (matching.py:294-375): the score map is computed in COARSE_CHUNK-block
     tiles inside the DP, the forward pass keeps the cost row from before
     each chunk, and the backtrace recomputes each chunk's tile and cost
     rows from that checkpoint. Twice the score compute, for (chunks + 64)
     rows of memory instead of 3 x (nb, kv). One dp_forward per tile and
-    pass and one dp_backtrace per tile, on the same _chunk_scores as the
+    pass and one dp_backtrace per tile, on the same block_scores as the
     materialized pair, so the paths and the score are bit-equal to it.
 
     suppress_paths: earlier k-best tracks' (nb,) lane paths; lanes within
-    SUPPRESS_LANES of them score -1e30.
+    SUPPRESS_LANES of them score -1e30 (inside block_scores).
     """
     from ..ops.coarse_dp import dp_backtrace, dp_forward
-    kv = desc_v_list[0].shape[0]
+    from ..ops.coarse_map import block_scores
+    desc_v = _phase_stack(desc_v)
+    kv = desc_v.shape[1]
     dev = desc_a.device
-    nb_pad = -(-nb // COARSE_CHUNK) * COARSE_CHUNK
-    n_chunks = nb_pad // COARSE_CHUNK
-    desc_a = torch.nn.functional.pad(
-        desc_a, (0, 0, 0, nb_pad * COARSE_PER_BLOCK - desc_a.shape[0]))
-    lanes_i = torch.arange(kv, dtype=torch.int32, device=dev)[None, :]
-    neg = torch.full((), -1e30, dtype=torch.float32, device=dev)
+    n_chunks = -(-nb // COARSE_CHUNK)
+    suppress = torch.stack(list(suppress_paths)) if suppress_paths else None
 
     def chunk_rows(c, prev):
         """Cost rows of chunk c's true blocks, from the row before it.
@@ -156,11 +142,8 @@ def _coarse_dp_streamed(desc_a, desc_v_list, nb, suppress_paths=()):
         last row is cost[nb - 1] (the JAX scan passes it through)."""
         b0 = c * COARSE_CHUNK
         n = min(COARSE_CHUNK, nb - b0)
-        s = _chunk_scores(desc_a, desc_v_list, c)[:n]
-        for vp in suppress_paths:
-            s = torch.where(torch.abs(lanes_i - vp[b0:b0 + n, None])
-                            <= SUPPRESS_LANES, neg, s)
-        return dp_forward(prev, s.contiguous())
+        return dp_forward(prev, block_scores(desc_a, desc_v, b0, n,
+                                             suppress))
 
     ckpts = torch.empty((n_chunks, kv), dtype=torch.float32, device=dev)
     prev = torch.zeros(kv, dtype=torch.float32, device=dev)
@@ -180,12 +163,14 @@ def _coarse_dp_streamed(desc_a, desc_v_list, nb, suppress_paths=()):
     return path.to(torch.int32), prev.index_select(0, path[-1:])[0]
 
 
-def _k_best_tracks(desc_a, desc_v_list, nb, streamed, mark=None):
+def _k_best_tracks(desc_a, desc_v, nb, streamed, mark=None):
     """The N_TRACKS k-best coarse tracks (matching.py:1132-1152): the DP
     run again with each earlier track's lanes (+/- SUPPRESS_LANES)
     suppressed. streamed selects _coarse_dp_streamed, else the score map is
     materialized and run through _coarse_dp; both give bit-equal results.
+    desc_v: the video phases' (7, Kv, K) descriptors, or a list of them.
     Returns (v_paths: list of (nb,) i32, scores: list of f32 scalars)."""
+    desc_v = _phase_stack(desc_v)
     v_paths, scores = [], []
     if streamed:
         # the score map is computed inside the streamed DP, so
@@ -193,13 +178,13 @@ def _k_best_tracks(desc_a, desc_v_list, nb, streamed, mark=None):
         if mark:
             mark('coarse_map')
         for _ in range(N_TRACKS):
-            v_path, score = _coarse_dp_streamed(desc_a, desc_v_list, nb,
+            v_path, score = _coarse_dp_streamed(desc_a, desc_v, nb,
                                                 v_paths)
             v_paths.append(v_path)
             scores.append(score)
         return v_paths, scores
     dev = desc_a.device
-    p_map = _block_scores_local(desc_a, desc_v_list)
+    p_map = _block_scores_local(desc_a, desc_v)
     if mark:
         mark('coarse_map')
     lanes = torch.arange(p_map.shape[1], dtype=torch.int32,
@@ -244,12 +229,13 @@ def _coarse_tracks(ms_a, norms_a, energy_a, len_a,
 
     nf = COARSE_STREAMS if nf is None else nf
     desc_a = _coarse_descriptors(ms_a[:nf], norms_a[:nf], a_mask)
-    desc_v_list = [_coarse_descriptors(ms_v[:nf], norms_v[:nf], v_mask,
-                                       phase) for phase in SUB_LANE_SHIFTS]
+    desc_v = torch.stack([_coarse_descriptors(ms_v[:nf], norms_v[:nf],
+                                              v_mask, phase)
+                          for phase in SUB_LANE_SHIFTS])
     ka = desc_a.shape[0]
-    kv = desc_v_list[0].shape[0]
+    kv = desc_v.shape[1]
     nb = ka // COARSE_PER_BLOCK
-    v_paths, scores = _k_best_tracks(desc_a, desc_v_list, nb,
+    v_paths, scores = _k_best_tracks(desc_a, desc_v, nb,
                                      nb * kv > COARSE_STREAM_ELEMS, mark)
     margin = _coarse_margin(scores, a_mask, nb)
 

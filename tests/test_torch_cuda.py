@@ -129,6 +129,68 @@ def test_dp_kernels_match_plain_on_card(cuda_device):
                        coarse_dp.dp_backtrace_plain(None, rows))
 
 
+@pytest.mark.parametrize("nb,kv,k,b0,n", [
+    (5, 7, 128, 0, 5), (70, 500, 128, 64, 6), (13, 241, 256, 0, 13),
+    (130, 1000, 256, 64, 64), (200, 16638, 128, 0, 200)])
+def test_coarse_map_kernel_matches_plain_on_card(cuda_device, nb, kv, k, b0,
+                                                 n):
+    """block_scores (csrc/coarse_map.cu) against block_scores_plain on
+    edge shapes, with no, one and two suppress paths (near lane 0 and near
+    Kv): the map within rtol 1e-5 / atol 1e-4, the suppressed lanes equal,
+    one launch counted per call."""
+    from describealign_tpu_torch.ops import coarse_map as cm
+    rng = np.random.default_rng(nb + kv)
+    nb_pad = -(-nb // 64) * 64
+    a = rng.standard_normal((nb_pad * 10, k)).astype(np.float32) / k ** 0.5
+    a[nb * 10:] = 0
+    v = rng.standard_normal((7, kv, k)).astype(np.float32) / k ** 0.5
+    a, v = (torch.from_numpy(x).to(cuda_device) for x in (a, v))
+    paths = torch.from_numpy(np.stack([
+        rng.integers(0, 26, nb),
+        rng.integers(max(0, kv - 26), kv, nb)]).astype(np.int32)).to(
+        cuda_device)
+    for sup in (None, paths[:1].contiguous(), paths):
+        before = cm.block_scores.launches
+        got = cm.block_scores(a, v, b0, n, sup)
+        torch.cuda.synchronize()
+        assert cm.block_scores.launches == before + 1
+        want = cm.block_scores_plain(a, v, b0, n, sup)
+        assert torch.equal(got == -1e30, want == -1e30)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+def test_coarse_map_kernel_tracks_on_card(cuda_device):
+    """The coarse pass of a real pair with the kernel's map and with the
+    plain map: equal k-best tracks, streamed and materialized, and scores
+    within rtol 1e-5."""
+    from describealign_tpu_torch.alignment import matching as tm
+    from describealign_tpu_torch.ops import coarse_map as cm
+    state = _state(cuda_device)
+    ms_a, norms_a, a_mask, ms_v, norms_v, v_mask = state[:6]
+    desc_a = tm._coarse_descriptors(ms_a[:3], norms_a[:3], a_mask)
+    desc_v = torch.stack([tm._coarse_descriptors(ms_v[:3], norms_v[:3],
+                                                 v_mask, p)
+                          for p in tm.SUB_LANE_SHIFTS])
+    nb = desc_a.shape[0] // tm.COARSE_PER_BLOCK
+    kernel = cm.block_scores
+    try:
+        cm.block_scores = cm.block_scores_plain
+        plain = tm._k_best_tracks(desc_a, desc_v, nb, streamed=False)
+    finally:
+        cm.block_scores = kernel
+    for streamed in (True, False):
+        before = cm.block_scores.launches
+        paths, scores = tm._k_best_tracks(desc_a, desc_v, nb, streamed)
+        torch.cuda.synchronize()
+        tiles = -(-nb // tm.COARSE_CHUNK)
+        assert cm.block_scores.launches - before == (
+            2 * tiles * tm.N_TRACKS if streamed else 1)
+        for p, q in zip(paths, plain[0]):
+            assert torch.equal(p, q)
+        np.testing.assert_allclose([float(x) for x in scores],
+                                   [float(x) for x in plain[1]], rtol=1e-5)
+
+
 def test_batch_matches_single_on_card(cuda_device):
     """align_batch_from_pcm on the card (its default device) against
     align_from_pcm pair by pair: equal apart from the margin, which the

@@ -3,11 +3,12 @@ sortedcontainers, matplotlib or platformdirs, and the port imports nothing
 of the JAX package. A subprocess blocks those modules and the JAX package
 and runs the port's align_from_pcm (both feature paths, the mel frontend),
 features_for, sequence-sharded features, the batch (with and without a
-device list), the device fit, phase vocoder and resampler, then combine()
-(with the device stretch backends) and the CLI's --version, on a small
-pair on the CPU; then the config and the GUI's headless core (the
-fallback path without platformdirs), music_bed and a campaign case, and
-the dryrun twin (scripts/torch_dryrun_multichip.py) on two CPU devices.
+device list; the coarse score map's and the DP's wrappers), the device
+fit, phase vocoder and resampler, then combine() (with the device stretch
+backends) and the CLI's --version, on a small pair on the CPU; then the
+config and the GUI's headless core (the fallback path without
+platformdirs), music_bed and a campaign case, and the dryrun twin
+(scripts/torch_dryrun_multichip.py) on two CPU devices.
 chip_smoke.py imports only the port, torch and numpy."""
 import ast
 import os
@@ -58,6 +59,9 @@ for r in both:
     assert np.array_equal(r[0], out[0]) and np.array_equal(r[1], out[1])
 assert len(BATCH_SPECS) == 8
 assert coarse_dp.dp_forward.launches == coarse_dp.dp_backtrace.launches == 0
+# the coarse score map's wrapper (the plain version on the CPU)
+from describealign_tpu_torch.ops import coarse_map
+assert coarse_map.block_scores.launches == 0
 
 # the mel frontend, sequence-sharded features, the data-parallel batch
 from describealign_tpu_torch.parallel.seqshard import sequence_sharded_features
