@@ -9,9 +9,9 @@ the skew max over each block's 10 coarse rows, P[b, v] = max_p
 S[10 b + p, v + p] (zero past Kv), a max over the phases, and in the
 k-best second pass -1e30 on the lanes within SUPPRESS_LANES of the first
 track. In eager torch that is 7 GEMMs, 7 pads and 63 maxima per chunk; the
-port runs it in one kernel (csrc/coarse_map.cu: 3xTF32 on the tensor
-cores, one CTA per 8 blocks x 240 lanes, see the source for the design
-and its bound).
+port runs it in one kernel (csrc/coarse_map.cu: 3xTF32 wgmma, the skew
+moved onto the B operand, one CTA per 64 blocks x 128 lanes, 64 for K
+above 128; see the source for the design and its bound).
 
 - `block_scores(desc_a, desc_v, b0, n, suppress)` dispatches on the
   tensors' device: CPU tensors go to `block_scores_plain`; CUDA tensors
@@ -21,12 +21,16 @@ and its bound).
 - `block_scores_plain` is the arithmetic the port ran before the kernel,
   unchanged: per 64-block chunk and phase one `torch.matmul`, the pad and
   the maxima, then `torch.where` per suppress path.
-- `block_scores_twin` walks the kernel's CTA tiles on the CPU: the 256
-  computed columns of a 240-lane tile (the halo), the zero-filled rows and
-  columns, the tf32 hi / lo split and the per-k-step partials summed in
-  the kernel's order, the phase loop, the edge and suppression tests and
-  the order of the maxima. The tensor core's own rounding inside a k-step
-  is not emulated: the twin's k-step partials are fp32 products.
+- `block_scores_twin` walks the kernel's CTA tiles on the CPU: the 64-block
+  row tiles with their audio rows grouped by p and zero past block b0 +
+  n, the lane tile's resident video rows (its lanes and the 9 of the
+  skew, zero past Kv), the tf32 hi / lo split and the per-k-step partials
+  summed in the kernel's order, every (phase, p) product read p rows into
+  the resident rows and folded into the running max of the consumer that
+  takes that p (p even: consumer 0, odd: consumer 1), the two maxima
+  merged at the end; then the suppression. The tensor core's own rounding
+  inside a k-step is not emulated: the twin's k-step partials are fp32
+  products.
 """
 import ctypes
 import threading
@@ -38,12 +42,19 @@ from ..alignment.matching import (COARSE_CHUNK, COARSE_PER_BLOCK,
 
 NEG = -1e30                     # a suppressed lane's score
 # the kernel's tile (csrc/coarse_map.cu)
-CTA_BLOCKS = 8                  # audio blocks per CTA (80 descriptor rows)
-CTA_COLUMNS = 256               # computed video columns per CTA
-CTA_LANES = CTA_COLUMNS - 16    # output lanes per CTA: a 9-column halo,
-                                # rounded up to two n8 tiles
-K_SLAB = 32                     # K per pipeline stage; K must be a multiple
-K_STEP = 8                      # the mma's k
+CTA_BLOCKS = 64                 # audio blocks per CTA: one wgmma m64
+K_SLAB = 32                     # K per TMA slab; K must be a multiple
+K_MAX = 256                     # the largest K the kernel takes
+K_STEP = 8                      # the wgmma's k
+CONSUMERS = 2                   # consumer warpgroups: p = c, c + 2, ...
+
+
+def cta_lanes(k):
+    """Output lanes of a CTA (the wgmma n) at descriptor width k: the
+    resident video rows take 8 bytes per row and column of K, so K above
+    128 takes a narrower tile."""
+    return 128 if k <= 4 * K_SLAB else 64
+
 
 _lib = None
 _count_lock = threading.Lock()  # the batch path launches from pool threads
@@ -51,7 +62,7 @@ _count_lock = threading.Lock()  # the batch path launches from pool threads
 
 def load_library():
     """The kernel's ctypes library, built from csrc/coarse_map.cu. Raises
-    if its tile is not the one block_scores_twin walks."""
+    if its tiles are not the ones block_scores_twin walks."""
     global _lib
     if _lib is None:
         from ._build import load_library as _load
@@ -62,22 +73,27 @@ def load_library():
         lib.coarse_map_config.restype = None
         lib.coarse_map_config.argtypes = [ptr]
         cfg = kernel_config(lib)
-        if (cfg["blocks"], cfg["lanes"], cfg["k_slab"]) != (
-                CTA_BLOCKS, CTA_LANES, K_SLAB):
-            raise RuntimeError(f"csrc/coarse_map.cu's tile {cfg} is not the "
-                               f"twin's ({CTA_BLOCKS} blocks, {CTA_LANES} "
-                               f"lanes, K slabs of {K_SLAB})")
+        want = (CTA_BLOCKS, cta_lanes(128), cta_lanes(256), K_SLAB, K_MAX)
+        if (cfg["blocks"], cfg["lanes_k128"], cfg["lanes_k256"],
+                cfg["k_slab"], cfg["k_max"]) != want:
+            raise RuntimeError(f"csrc/coarse_map.cu's tiles {cfg} are not "
+                               f"the twin's (blocks, lanes at K 128 and "
+                               f"256, K slab, K max: {want})")
         _lib = lib
     return _lib
 
 
+_CONFIG_KEYS = ("blocks", "lanes_k128", "lanes_k256", "threads",
+                "smem_k128", "smem_k256", "k_slab", "k_max")
+
+
 def kernel_config(lib=None):
-    """{blocks, lanes, threads, smem_bytes, k_slab} of the kernel's CTA, as
-    the built library reports it."""
-    cfg = (ctypes.c_int * 5)()
+    """The kernel's CTA tiles as the built library reports them: audio
+    blocks, output lanes at K <= 128 and K <= 256, threads, dynamic shared
+    memory bytes of each tile, K per slab, the largest K."""
+    cfg = (ctypes.c_int * len(_CONFIG_KEYS))()
     (lib or load_library()).coarse_map_config(cfg)
-    return dict(zip(("blocks", "lanes", "threads", "smem_bytes", "k_slab"),
-                    cfg))
+    return dict(zip(_CONFIG_KEYS, cfg))
 
 
 def _check(desc_a, desc_v, b0, n, suppress):
@@ -122,18 +138,22 @@ def block_scores(desc_a, desc_v, b0, n, suppress=None):
     suppress[i, b] for any i.
 
     desc_a: (rows >= 10 (b0 + n), K) f32 audio descriptors; desc_v: (7, Kv,
-    K) f32, the video phases' descriptors; K a multiple of 32; suppress:
-    None or (t, >= b0 + n) i32 lane paths indexed by absolute block."""
+    K) f32, the video phases' descriptors; K a multiple of 32 (up to 256
+    on the card); suppress: None or (t, >= b0 + n) i32 lane paths indexed
+    by absolute block."""
     _check(desc_a, desc_v, b0, n, suppress)
     dev = desc_a.device
     if dev.type == 'cpu':
         return block_scores_plain(desc_a, desc_v, b0, n, suppress)
     if dev.type != 'cuda':
         raise ValueError(f"block_scores: unsupported device {dev}")
+    kv, k = desc_v.shape[1], desc_v.shape[2]
+    if k > K_MAX:
+        raise ValueError(f"block_scores: the kernel takes K up to {K_MAX}, "
+                         f"not {k}")
     if desc_a.data_ptr() % 16 or desc_v.data_ptr() % 16:
         raise ValueError("block_scores: descriptors must be 16-byte aligned")
     lib = load_library()
-    kv, k = desc_v.shape[1], desc_v.shape[2]
     out = torch.empty((n, kv), dtype=torch.float32, device=dev)
     n_sup = 0 if suppress is None else suppress.shape[0]
     with torch.cuda.device(dev):
@@ -143,6 +163,9 @@ def block_scores(desc_a, desc_v, b0, n, suppress=None):
             None if suppress is None else suppress.data_ptr(),
             out.data_ptr(), desc_a.shape[0], k, kv, b0, n, n_sup,
             0 if suppress is None else suppress.shape[1], stream)
+    if rc == -1:
+        raise RuntimeError("block_scores: cuTensorMapEncodeTiled refused "
+                           "the descriptors' tensor maps")
     if rc != 0:
         raise RuntimeError(f"block_scores kernel launch failed: CUDA error "
                            f"{rc}")
@@ -230,43 +253,53 @@ def _tile_products(a_hi, a_lo, b_hi, b_lo):
 
 def block_scores_twin(desc_a, desc_v, b0, n, suppress=None):
     """block_scores as the kernel tiles it, on the CPU (module docstring).
-    Same arguments and result layout as block_scores. The CTAs of one
-    lane range are computed together: they share nothing in the kernel."""
+    Same arguments and result layout as block_scores. The CTAs of one lane
+    range are computed together, and each phase's (p, k-step) products of
+    a CTA in one batch of products: they share nothing in the kernel, and
+    every element's k-step partials are the same products."""
     _check(desc_a, desc_v, b0, n, suppress)
-    kv = desc_v.shape[1]
+    kv, k = desc_v.shape[1], desc_v.shape[2]
+    if k > K_MAX:
+        raise ValueError(f"block_scores_twin: K {k} is above {K_MAX}")
     dev = desc_a.device
+    lanes = cta_lanes(k)
+    resident = lanes + COARSE_PER_BLOCK - 1     # the skew's 9 more rows
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    # the staged A rows of every CTA: (row CTAs, 80, K), zero past the range
-    n_bx = -(-n // CTA_BLOCKS)
-    rows = ((b0 + CTA_BLOCKS * torch.arange(n_bx, device=dev))[:, None]
-            * COARSE_PER_BLOCK
-            + torch.arange(CTA_BLOCKS * COARSE_PER_BLOCK, device=dev))
-    row_ok = (rows < COARSE_PER_BLOCK * (b0 + n))[:, :, None]
-    rows = torch.where(row_ok[:, :, 0], rows, 0)
-    a_hi, a_lo = (torch.where(row_ok, x[rows], zero)
-                  for x in _split_tf32(desc_a))
+    # the A slabs of every row tile: (tiles, p, 64 blocks, K), rows 10 b +
+    # p, zero past block b0 + n (TMA's out-of-bounds fill)
+    n_tiles = -(-n // CTA_BLOCKS)
+    blocks = b0 + torch.arange(n_tiles * CTA_BLOCKS, device=dev).reshape(
+        n_tiles, 1, CTA_BLOCKS)
+    rows = (COARSE_PER_BLOCK * blocks
+            + torch.arange(COARSE_PER_BLOCK, device=dev)[None, :, None])
+    row_ok = (blocks < b0 + n).expand_as(rows)
+    rows = torch.where(row_ok, rows, 0)
+    a_hi, a_lo = (torch.where(row_ok[..., None], x[rows], zero).reshape(
+        n_tiles, COARSE_PER_BLOCK * CTA_BLOCKS, k)
+        for x in _split_tf32(desc_a))
     v_hi, v_lo = _split_tf32(desc_v)
-    out = torch.empty((n_bx * CTA_BLOCKS, kv), dtype=torch.float32,
+    out = torch.empty((n_tiles * CTA_BLOCKS, kv), dtype=torch.float32,
                       device=dev)
-    for v0 in range(0, kv, CTA_LANES):
-        cols = v0 + torch.arange(CTA_COLUMNS, device=dev)
+    for v0 in range(0, kv, lanes):
+        # the phase's resident video rows v0 .. v0 + resident - 1, zero
+        # past Kv (the plain version's pad)
+        cols = v0 + torch.arange(resident, device=dev)
         col_ok = (cols < kv)[:, None]
         cols = torch.where(cols < kv, cols, 0)
-        # thread j of the epilogue: output lane v0 + j, j < 240
-        lanes = v0 + torch.arange(CTA_LANES, device=dev)
-        best = None
+        # the running max of each consumer
+        best = torch.full((CONSUMERS, n_tiles, CTA_BLOCKS, lanes),
+                          float("-inf"), device=dev)
         for ph in range(len(SUB_LANE_SHIFTS)):
             s = _tile_products(a_hi, a_lo,
                                torch.where(col_ok, v_hi[ph, cols], zero),
                                torch.where(col_ok, v_lo[ph, cols], zero))
-            m = None
+            s = s.reshape(n_tiles, COARSE_PER_BLOCK, CTA_BLOCKS, resident)
             for p in range(COARSE_PER_BLOCK):
-                sp = s[:, p::COARSE_PER_BLOCK, p:p + CTA_LANES]
-                sp = torch.where(lanes + p < kv, sp, zero)
-                m = sp if m is None else torch.maximum(m, sp)
-            best = m if best is None else torch.maximum(best, m)
-        nl = min(CTA_LANES, kv - v0)
-        out[:, v0:v0 + nl] = best.reshape(-1, CTA_LANES)[:, :nl]
+                c = p % CONSUMERS
+                best[c] = torch.maximum(best[c], s[:, p, :, p:p + lanes])
+        best = torch.maximum(best[0], best[1])
+        nl = min(lanes, kv - v0)
+        out[:, v0:v0 + nl] = best.reshape(-1, lanes)[:, :nl]
     out = out[:n]
     if suppress is not None:
         lanes_i = torch.arange(kv, device=dev, dtype=torch.int32)[None, :]

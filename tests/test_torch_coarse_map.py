@@ -3,9 +3,11 @@
 
 block_scores_plain is the arithmetic the port ran before the kernel, so it
 is held bit for bit to that code (copied below as _old_chunk_scores).
-block_scores_twin walks csrc/coarse_map.cu's tiles (8 blocks x 240 lanes
-of 256 computed columns, the zero-filled rows and columns, the per-k-step
-3xTF32 partials, the phase loop, the edge and suppression tests); it sums
+block_scores_twin walks csrc/coarse_map.cu's tiles (64-block row tiles x
+128 lanes, 64 above K 128, read p rows into the resident video rows,
+the two consumers' alternating p and their final merge; the zero-filled
+rows and columns, the per-k-step 3xTF32 partials, the suppression); it
+sums
 in another order than the JAX GEMM, so its map is held to
 tests/test_torch_coarse.py's bar, rtol 1e-5 / atol 1e-4, and the k-best
 tracks it leads to must be the JAX package's lane for lane (scores within
@@ -136,14 +138,19 @@ def test_twin_map_matches_jax(name, nf):
 
 
 @pytest.mark.parametrize("nb,kv,k,b0,n", [
-    (5, 7, 128, 0, 5),          # Kv below the 9-column halo, one part tile
-    (70, 500, 128, 64, 6),      # Kv off the 240-lane tile, a partial tile
-    (13, 241, 256, 0, 13),      # K 256, blocks off the 8-block tile
+    (5, 7, 128, 0, 5),          # Kv below the 9-row skew halo, one part tile
+    (70, 500, 128, 64, 6),      # Kv off the 128-lane tile, a partial tile
+    (13, 241, 256, 0, 13),      # K 256, Kv off its 64-lane tile
     (130, 1000, 128, 64, 64),   # a full 64-block tile at b0 > 0
+    (70, 129, 128, 0, 65),      # blocks off 64, Kv one past the lane tile
+    (150, 300, 128, 37, 100),   # a partial tile at b0 > 0 off 64
+    (70, 65, 256, 3, 67),       # K 256: two row tiles, Kv 64 + 1
+    (30, 140, 96, 0, 30),       # K 96: three slabs of the K-128 tile
 ])
 def test_twin_edges_match_plain(nb, kv, k, b0, n):
-    """Edge shapes, with no, one and two suppress paths (one near lane 0,
-    one near Kv): the twin against the plain version."""
+    """Edge shapes of the kernel's tiles, with no, one and two suppress
+    paths (one near lane 0, one near Kv): the twin against the plain
+    version."""
     a, v = _random(nb, kv, k, seed=nb + kv)
     rng = np.random.default_rng(kv)
     near0 = rng.integers(0, 26, nb)

@@ -131,7 +131,11 @@ def test_dp_kernels_match_plain_on_card(cuda_device):
 
 @pytest.mark.parametrize("nb,kv,k,b0,n", [
     (5, 7, 128, 0, 5), (70, 500, 128, 64, 6), (13, 241, 256, 0, 13),
-    (130, 1000, 256, 64, 64), (200, 16638, 128, 0, 200)])
+    (130, 1000, 256, 64, 64), (200, 16638, 128, 0, 200),
+    # the 64-block x 128-lane tile's edges (64 lanes above K 128)
+    (13, 128, 128, 0, 13), (9, 129, 128, 0, 9), (13, 65, 256, 0, 13),
+    (70, 129, 128, 0, 65), (150, 300, 128, 37, 100), (70, 161, 256, 3, 67),
+    (30, 140, 96, 0, 30)])
 def test_coarse_map_kernel_matches_plain_on_card(cuda_device, nb, kv, k, b0,
                                                  n):
     """block_scores (csrc/coarse_map.cu) against block_scores_plain on
