@@ -44,6 +44,7 @@ import torch
 
 from ..ops.host_features import extract_features_host
 from ..ops.mel import check_frontend
+from ..utils import spans
 from . import continuity, fit, lis, matching, preprocess, refine
 from .native import native_lib
 from .outputs import similarity_and_nodes
@@ -90,21 +91,22 @@ def host_features_padded(pcm_i16, true_samples=None, npad=None,
     """Host feature extraction into the bucket-padded (5, Npad) f32 stack;
     frames past the true length are zero. Returns (stack, n_frames).
     frontend: 'cascade' or 'mel' (ops/host_features)."""
-    true_samples = true_samples or pcm_i16.shape[1]
-    n = int(true_samples) // 210
-    if npad is None:
-        npad = _bucket_pad(n)
-    out = np.zeros((5, max(npad, n + 3)), np.float32)
-    fs = extract_features_host(pcm_i16, true_samples, out=out,
-                               frontend=frontend)
-    if fs and len(fs[0]) and fs[0].base is out:
-        out[:, n:] = 0.0
-        return np.ascontiguousarray(out[:, :npad]), n
-    out = np.zeros((5, npad), np.float32)
-    for j, f in enumerate(fs):
-        k = min(len(f), n)
-        out[j, :k] = f[:k]
-    return out, n
+    with spans.span('features.host'):
+        true_samples = true_samples or pcm_i16.shape[1]
+        n = int(true_samples) // 210
+        if npad is None:
+            npad = _bucket_pad(n)
+        out = np.zeros((5, max(npad, n + 3)), np.float32)
+        fs = extract_features_host(pcm_i16, true_samples, out=out,
+                                   frontend=frontend)
+        if fs and len(fs[0]) and fs[0].base is out:
+            out[:, n:] = 0.0
+            return np.ascontiguousarray(out[:, :npad]), n
+        out = np.zeros((5, npad), np.float32)
+        for j, f in enumerate(fs):
+            k = min(len(f), n)
+            out[j, :k] = f[:k]
+        return out, n
 
 
 def _feature_path(features, frontend='cascade'):
@@ -128,14 +130,16 @@ def _pcm_to_device(pcm_i16, device):
     host wait (the caching host allocator keeps the buffer until the copy
     is done)."""
     c, s = pcm_i16.shape
-    if device.type != 'cuda':
-        return torch.from_numpy(np.ascontiguousarray(_pad_pcm_i16(pcm_i16)))
-    buf = torch.empty((c, _padded_len(s)), dtype=torch.int16,
-                      pin_memory=True)
-    host = buf.numpy()
-    host[:, :s] = pcm_i16
-    host[:, s:] = 0
-    return buf.to(device, non_blocking=True)
+    with spans.span('features.upload'):
+        if device.type != 'cuda':
+            return torch.from_numpy(
+                np.ascontiguousarray(_pad_pcm_i16(pcm_i16)))
+        buf = torch.empty((c, _padded_len(s)), dtype=torch.int16,
+                          pin_memory=True)
+        host = buf.numpy()
+        host[:, :s] = pcm_i16
+        host[:, s:] = 0
+        return buf.to(device, non_blocking=True)
 
 
 def _single_shot_parts(out):
@@ -160,7 +164,8 @@ def _host_stages_single_shot(parts, na, nv, fit_backend, device,
 def _upload(feats_np, device):
     """The f16 feature round trip of the JAX package's upload
     (api.py:185,192): the matcher sees f16-rounded features."""
-    return torch.from_numpy(feats_np.astype(np.float16)).to(device)
+    with spans.span('features.upload'):
+        return torch.from_numpy(feats_np.astype(np.float16)).to(device)
 
 
 def _timer(timings, device):
@@ -177,6 +182,7 @@ def _timer(timings, device):
     return mark
 
 
+@spans.entry('align')
 def align_from_pcm(video_pcm_i16, audio_pcm_i16, fit_backend=None,
                    video_samples=None, audio_samples=None,
                    combine_prints=False, device='cuda', timings=None,
@@ -190,7 +196,12 @@ def align_from_pcm(video_pcm_i16, audio_pcm_i16, fit_backend=None,
     addition to align()'s own lines. device: where the matcher runs.
     timings: an optional dict that receives per-stage seconds ('features',
     'coarse_map', 'coarse_dp', 'fine', 'lis_tail'); the device is then
-    synchronized at every stage boundary. features: 'host' (the native C++
+    synchronized at every stage boundary. 'lis_tail' is everything after
+    the fine pass: the device-to-host waits for its results, the native
+    LIS, the host tail and, when it runs, the 5-stream retry with its
+    matcher. Finer, without a synchronization: run the call under
+    torch.profiler.profile(...) and read utils.spans.snapshot() or the
+    exported trace (utils/spans.py). features: 'host' (the native C++
     extractor, both streams padded to a common bucket, f16 upload, the
     streamed matcher) or 'device' (int16 PCM upload, the device
     extractor, the single-shot matcher; 'features' is then the upload
@@ -213,8 +224,10 @@ def align_from_pcm(video_pcm_i16, audio_pcm_i16, fit_backend=None,
         print("  matching audio...  \r", end='')
         parts = _single_shot_parts(matching.extract_and_match(
             dev_a, na, dev_v, nv, mark=mark))
-        result = _host_stages_single_shot(
-            [t.cpu().numpy() for t in parts], na, nv, fit_backend, device)
+        with spans.span('tail.fetch'):
+            parts = [t.cpu().numpy() for t in parts]
+        result = _host_stages_single_shot(parts, na, nv, fit_backend,
+                                          device)
         if mark:
             mark('lis_tail')
         return result
@@ -249,13 +262,14 @@ def align_from_pcm(video_pcm_i16, audio_pcm_i16, fit_backend=None,
     return result
 
 
+@spans.entry('align')
 def align(video_features, audio_desc_features, video_energy,
           audio_desc_energy, fit_backend=None, video_frames=None,
           audio_frames=None, device='cuda', timings=None):
     """Feature-list entry (reference-compatible module API): returns the
     reference's 5-tuple and prints the low-confidence WARNING line.
     timings: as in align_from_pcm ('features' is the stacking and the
-    upload)."""
+    upload); so are the spans."""
     device = torch.device(device)
     fit_backend = fit_backend or DEFAULT_FIT_BACKEND
     mark = _timer(timings, device) if timings is not None else None
@@ -268,8 +282,9 @@ def align(video_features, audio_desc_features, video_energy,
 
     print("  memorizing video...        \r", end='')
     npad = max(_bucket_pad(na), _bucket_pad(nv))
-    feats_a_np = _stack_padded(audio_desc_features, na, npad)
-    feats_v_np = _stack_padded(video_features, nv, npad)
+    with spans.span('features.stack'):
+        feats_a_np = _stack_padded(audio_desc_features, na, npad)
+        feats_v_np = _stack_padded(video_features, nv, npad)
 
     print("  matching audio...  \r", end='')
     dev_a = _upload(feats_a_np, device)
@@ -291,30 +306,42 @@ def _streamed_lis(dev_a, na, dev_v, nv, nf=None, mark=None):
     audio_path, coarse margin as a Python float)."""
     chunks, starts_tracks, _, margin = matching.match_stream(
         dev_a, na, dev_v, nv, nf=nf, mark=mark)
-    y, x = _consume_stream((ch.cpu().numpy() for ch in chunks),
-                           starts_tracks.cpu().numpy())
-    return y, x, float(margin)
+    with spans.span('tail.fetch'):
+        starts_tracks = starts_tracks.cpu().numpy()
+    y, x = _consume_stream(_fetched(chunks), starts_tracks)
+    with spans.span('tail.fetch'):
+        margin = float(margin)
+    return y, x, margin
+
+
+def _fetched(chunks):
+    """The device chunks as numpy arrays, each copied when the LIS asks."""
+    for ch in chunks:
+        with spans.span('tail.fetch'):
+            packed = ch.cpu().numpy()
+        yield packed
 
 
 def _consume_stream(packed_iter, starts_tracks):
     """Feed packed chunk buffers (numpy, audio order) into a fresh native
     LIS and return the (video_path, audio_path) chain (api.py:836-883)."""
-    # grouped starts for the LIS: band 1 twice (half-spans) + rescues
-    starts_grouped = np.stack(
-        [starts_tracks[0], starts_tracks[0]] + list(starts_tracks[1:]),
-        axis=1).astype(np.int32)                      # (B_pad, G)
-    # the frontier spans the video length plus the int16 offset range
-    max_key = int(starts_grouped.max()) + 32768
-    k1 = matching.TOP_K
-    k2 = (starts_grouped.shape[1] - 2) * (matching.TOP_K // 2)
-    with lis.LisStream(max_key) as ctx:
-        row = 0
-        for packed in packed_iter:
-            nblk = packed.shape[0]
-            ctx.feed_packed(packed, starts_grouped[row:row + nblk],
-                            a_base=row * 210, blk=210, k1=k1, k2=k2)
-            row += nblk
-        return ctx.finish()
+    with spans.span('tail.lis'):
+        # grouped starts for the LIS: band 1 twice (half-spans) + rescues
+        starts_grouped = np.stack(
+            [starts_tracks[0], starts_tracks[0]] + list(starts_tracks[1:]),
+            axis=1).astype(np.int32)                      # (B_pad, G)
+        # the frontier spans the video length plus the int16 offset range
+        max_key = int(starts_grouped.max()) + 32768
+        k1 = matching.TOP_K
+        k2 = (starts_grouped.shape[1] - 2) * (matching.TOP_K // 2)
+        with lis.LisStream(max_key) as ctx:
+            row = 0
+            for packed in packed_iter:
+                nblk = packed.shape[0]
+                ctx.feed_packed(packed, starts_grouped[row:row + nblk],
+                                a_base=row * 210, blk=210, k1=k1, k2=k2)
+                row += nblk
+            return ctx.finish()
 
 
 def warn_low_confidence(margin):
@@ -339,15 +366,19 @@ def _host_stages_from_path(y, x, feats_a_np, feats_v_np, na, nv,
     except RuntimeError:
         # the reference's "Alignment failed" path-length raise
         if margin is not None:
+            spans.count('retry.short_path')
             retried = _coarse_retry(feats_a_np, feats_v_np, na, nv,
                                     fit_backend, None, device, quiet)
             if retried is not None:
+                spans.count('retry.kept')
                 return retried
         raise
     if margin is not None and margin < matching.COARSE_MARGIN_FLOOR:
+        spans.count('retry.low_margin')
         retried = _coarse_retry(feats_a_np, feats_v_np, na, nv,
                                 fit_backend, margin, device, quiet)
         if retried is not None:
+            spans.count('retry.kept')
             return retried
     return r + (margin,)
 
@@ -366,22 +397,25 @@ def _coarse_retry(feats_a_np, feats_v_np, na, nv, fit_backend, margin,
     the fine kernel, CUDA, device memory - propagate: the JAX package
     swallows them too, but there they never came from a hand-written
     kernel."""
-    if not quiet:
-        print("  rechecking alignment (full-band descriptors)...\r", end='')
-    y, x, m_r = _streamed_lis(
-        _upload(feats_a_np, device), na, _upload(feats_v_np, device), nv,
-        nf=matching.COARSE_RETRY_STREAMS)
-    m_r = m_r * matching.COARSE_STREAMS / matching.COARSE_RETRY_STREAMS
-    bar = (matching.COARSE_MARGIN_FLOOR if margin is None else
-           max(margin, matching.COARSE_MARGIN_FLOOR))
-    if not (np.isfinite(m_r) and m_r > bar):
-        return None
-    try:
-        r = _host_stages_from_path_inner(y, x, feats_a_np, feats_v_np,
-                                         na, nv, fit_backend, quiet, device)
-    except (RuntimeError, ValueError):
-        return None
-    return r + (m_r,)
+    with spans.span('tail.retry'):
+        if not quiet:
+            print("  rechecking alignment (full-band descriptors)...\r",
+                  end='')
+        y, x, m_r = _streamed_lis(
+            _upload(feats_a_np, device), na, _upload(feats_v_np, device),
+            nv, nf=matching.COARSE_RETRY_STREAMS)
+        m_r = m_r * matching.COARSE_STREAMS / matching.COARSE_RETRY_STREAMS
+        bar = (matching.COARSE_MARGIN_FLOOR if margin is None else
+               max(margin, matching.COARSE_MARGIN_FLOOR))
+        if not (np.isfinite(m_r) and m_r > bar):
+            return None
+        try:
+            r = _host_stages_from_path_inner(y, x, feats_a_np, feats_v_np,
+                                             na, nv, fit_backend, quiet,
+                                             device)
+        except (RuntimeError, ValueError):
+            return None
+        return r + (m_r,)
 
 
 # One token per core around each heavy native section of the batch path
@@ -390,6 +424,17 @@ def _coarse_retry(feats_a_np, feats_v_np, na, nv, fit_backend, margin,
 # only refills caches (api.py:896-917). Device dispatches and the waits for
 # device results stay outside the token.
 _HOST_TOKEN = threading.BoundedSemaphore(os.cpu_count() or 1)
+
+
+@contextlib.contextmanager
+def _host_token():
+    """Hold _HOST_TOKEN for the duration; the wait for it is a span."""
+    with spans.span('batch.token_wait'):
+        _HOST_TOKEN.acquire()
+    try:
+        yield
+    finally:
+        _HOST_TOKEN.release()
 
 
 def _require_device(device):
@@ -401,6 +446,7 @@ def _require_device(device):
     return device
 
 
+@spans.entry('batch')
 def align_batch_from_pcm(pairs, fit_backend=None, device_depth=4,
                          host_workers=None, true_samples=None,
                          device='cuda', features='host', frontend='cascade',
@@ -423,7 +469,9 @@ def align_batch_from_pcm(pairs, fit_backend=None, device_depth=4,
     pipeline; host features only), and `device` is not used.
 
     Returns a list of align_from_pcm's 6-tuples, one per pair, in input
-    order. The first error of any pair is raised.
+    order. The first error of any pair is raised. Spans: as in
+    align_from_pcm; each pair is a request of its own, a child of the
+    batch's.
     """
     _feature_path(features, frontend)
     if mesh is not None and features == 'device':
@@ -497,14 +545,16 @@ def _pipelined(pairs, true_samples, dispatch, refine, host_workers,
     buckets = [max(_bucket_pad(sv // 210), _bucket_pad(sa // 210))
                for sv, sa in true_samples]
 
-    def settle_and_refine(parts, done, sv, sa, device):
-        try:
-            if done is not None:
-                done.synchronize()
-        finally:
-            in_flight.release()
-        with _HOST_TOKEN:
-            return refine(parts, sv, sa, device)
+    def settle_and_refine(parts, done, sv, sa, request, device):
+        with spans.installed(request):
+            try:
+                with spans.span('batch.result_wait'):
+                    if done is not None:
+                        done.synchronize()
+            finally:
+                in_flight.release()
+            with _host_token(), spans.span('batch.refine'):
+                return refine(parts, sv, sa, device)
 
     def on_device(fn):
         # the current device is per thread
@@ -520,18 +570,23 @@ def _pipelined(pairs, true_samples, dispatch, refine, host_workers,
             device = mesh[i % n_dev]
             g0 = i - i % n_dev
             npad = max(buckets[g0:g0 + n_dev])
-            in_flight.acquire()
-            try:
-                parts, done = on_device(dispatch)(v, a, sv, sa, npad,
-                                                  device)
-            except BaseException:
-                # a failing dispatch must not keep its slot; the first
-                # error aborts the batch
-                in_flight.release()
-                raise
+            request = spans.fork()
+            with spans.installed(request):
+                with spans.span('batch.slot_wait'):
+                    in_flight.acquire()
+                try:
+                    with spans.span('batch.dispatch'):
+                        parts, done = on_device(dispatch)(v, a, sv, sa,
+                                                          npad, device)
+                except BaseException:
+                    # a failing dispatch must not keep its slot; the first
+                    # error aborts the batch
+                    in_flight.release()
+                    raise
             futs.append(pool.submit(on_device(settle_and_refine), parts,
-                                    done, sv, sa, device))
-        return [f.result() for f in futs]
+                                    done, sv, sa, request, device))
+        with spans.span('batch.drain'):
+            return [f.result() for f in futs]
     finally:
         # pairs already handed to the pool finish (and release their
         # slots); none is left running when the call returns or raises
@@ -567,15 +622,16 @@ def _upload_pair_features(v, a, sv, sa, npad, device, frontend):
     = video) without a host wait. Returns (the device array, fa, fv, na,
     nv): the f32 features for the host stages and the true frame
     counts."""
-    fav_t = torch.empty((2, 5, npad), dtype=torch.float16,
-                        pin_memory=device.type == 'cuda')
-    fav = fav_t.numpy()
-    with _HOST_TOKEN:
+    with _host_token():
         fv, nv = host_features_padded(v, sv, npad, frontend)
         fa, na = host_features_padded(a, sa, npad, frontend)
+    with spans.span('features.upload'):
+        fav_t = torch.empty((2, 5, npad), dtype=torch.float16,
+                            pin_memory=device.type == 'cuda')
+        fav = fav_t.numpy()
         fav[0] = fa
         fav[1] = fv
-    return fav_t.to(device, non_blocking=True), fa, fv, na, nv
+        return fav_t.to(device, non_blocking=True), fa, fv, na, nv
 
 
 def _align_batch_streamed(pairs, true_samples, fit_backend, host_workers,
@@ -699,31 +755,34 @@ def _host_stages_from_path_inner(y, x, feats_a_np, feats_v_np, na, nv,
 
     if not quiet:
         print("  refining match: pass 1 of 2...\r", end='')
-    x, y = continuity.continuity_filter(
-        np.asarray(x, np.float64), np.asarray(y, np.float64))
+    with spans.span('tail.pass1'):
+        x, y = continuity.continuity_filter(
+            np.asarray(x, np.float64), np.asarray(y, np.float64))
 
-    yi = np.ascontiguousarray(y, np.int64)
-    xi = np.ascontiguousarray(x, np.int64)
-    audio_scaled, video_scaled = _rescale_native(
-        np.ascontiguousarray(feats_a_np, np.float32),
-        np.ascontiguousarray(feats_v_np, np.float32), na, nv, xi, yi)
+        yi = np.ascontiguousarray(y, np.int64)
+        xi = np.ascontiguousarray(x, np.int64)
+        audio_scaled, video_scaled = _rescale_native(
+            np.ascontiguousarray(feats_a_np, np.float32),
+            np.ascontiguousarray(feats_v_np, np.float32), na, nv, xi, yi)
 
-    cx, cy = continuity.compress_path(x, y)
-    fit_result = fit.solve_l1_fit(cx, cy, backend=fit_backend,
-                                  device=device)
-    smooth_path = list(zip(cx, fit_result['smooth_y']))
+        cx, cy = continuity.compress_path(x, y)
+        fit_result = fit.solve_l1_fit(cx, cy, backend=fit_backend,
+                                      device=device)
+        smooth_path = list(zip(cx, fit_result['smooth_y']))
 
     if not quiet:
         print("  refining match: pass 2 of 2...\r", end='')
-    clusters = refine.build_line_clusters(smooth_path, fit_result['slopes'])
-    pj, pc, pq, offsets = refine.build_points_flat(clusters, audio_scaled,
-                                                   video_scaled)
-    path = refine_dp_flat(pj, pc, pq, offsets, len(clusters),
-                          len(video_scaled))
-    _fail_if_short(len(path), nv, na)
+    with spans.span('tail.pass2'):
+        clusters = refine.build_line_clusters(smooth_path,
+                                              fit_result['slopes'])
+        pj, pc, pq, offsets = refine.build_points_flat(
+            clusters, audio_scaled, video_scaled)
+        path = refine_dp_flat(pj, pc, pq, offsets, len(clusters),
+                              len(video_scaled))
+        _fail_if_short(len(path), nv, na)
 
-    audio_times, video_times, similarity_percent, path_s = \
-        similarity_and_nodes(path, len(audio_scaled), len(video_scaled),
-                             na, nv)
+        audio_times, video_times, similarity_percent, path_s = \
+            similarity_and_nodes(path, len(audio_scaled),
+                                 len(video_scaled), na, nv)
     return (audio_times, video_times, similarity_percent, path_s,
             fit_result['median_slope'])

@@ -13,6 +13,7 @@ import ctypes
 
 import numpy as np
 
+from ..utils import spans
 from .native import native_lib
 
 # dp.cpp lis_stream_new rejects caps over 2^28 keys (~355 h of video)
@@ -34,26 +35,27 @@ def lis_from_match(quals, offs, starts):
     (a 1-D starts is one group). Exact duplicates from overlapping bands
     collapse like the reference's per-frame candidate sets. Returns the
     (video_path, audio_path) int64 chain."""
-    quals = np.ascontiguousarray(quals, np.float32)
-    offs = np.ascontiguousarray(offs, np.int16)
-    starts = np.ascontiguousarray(starts, np.int32)
-    if starts.ndim == 1:
-        starts = starts[:, None]
-    nb, blk, k = quals.shape
-    cap = nb * blk * k + 1
-    out_v = np.empty(cap, np.int64)
-    out_a = np.empty(cap, np.int64)
-    out_len = ctypes.c_longlong(0)
-    rc = native_lib().lis_from_match(
-        quals.ctypes.data_as(_F32P), offs.ctypes.data_as(_I16P),
-        starts.ctypes.data_as(_I32P), ctypes.c_longlong(nb),
-        ctypes.c_longlong(blk), ctypes.c_longlong(k),
-        ctypes.c_longlong(starts.shape[1]), out_v.ctypes.data_as(_I64P),
-        out_a.ctypes.data_as(_I64P), ctypes.byref(out_len))
-    if rc != 0:
-        raise RuntimeError("native lis_from_match failed")
-    m = out_len.value
-    return out_v[:m].copy(), out_a[:m].copy()
+    with spans.span('tail.lis'):
+        quals = np.ascontiguousarray(quals, np.float32)
+        offs = np.ascontiguousarray(offs, np.int16)
+        starts = np.ascontiguousarray(starts, np.int32)
+        if starts.ndim == 1:
+            starts = starts[:, None]
+        nb, blk, k = quals.shape
+        cap = nb * blk * k + 1
+        out_v = np.empty(cap, np.int64)
+        out_a = np.empty(cap, np.int64)
+        out_len = ctypes.c_longlong(0)
+        rc = native_lib().lis_from_match(
+            quals.ctypes.data_as(_F32P), offs.ctypes.data_as(_I16P),
+            starts.ctypes.data_as(_I32P), ctypes.c_longlong(nb),
+            ctypes.c_longlong(blk), ctypes.c_longlong(k),
+            ctypes.c_longlong(starts.shape[1]), out_v.ctypes.data_as(_I64P),
+            out_a.ctypes.data_as(_I64P), ctypes.byref(out_len))
+        if rc != 0:
+            raise RuntimeError("native lis_from_match failed")
+        m = out_len.value
+        return out_v[:m].copy(), out_a[:m].copy()
 
 
 class LisStream:

@@ -27,6 +27,7 @@ cost row per tile, as the JAX package does.
 import numpy as np
 import torch
 
+from ..utils import spans
 from .preprocess import (WINDOW, preprocess_features, valid_audio_mask,
                          valid_video_mask)
 
@@ -438,18 +439,20 @@ def match_stream(feats_a, len_a, feats_v, len_v, nf=None, mark=None):
     to the true block count. Returns (chunks: list of (rows, W) int16
     device tensors in audio order, starts_tracks (T, B_pad) i32, n_chunks,
     margin f32 scalar)."""
-    state = match_coarse(feats_a, len_a, feats_v, len_v, nf=nf, mark=mark)
-    starts_tracks = state[6]
-    n_chunks = starts_tracks.shape[1] // FINE_CHUNK
-    nb = nb_for(feats_a.shape[1])
-    chunks = []
-    for c in range(n_chunks):
-        chunk = match_fine_chunk(*state[:6], starts_tracks, c * FINE_CHUNK,
-                                 nb)
-        chunks.append(chunk[:min(FINE_CHUNK, nb - c * FINE_CHUNK)])
-    if mark:
-        mark('fine')
-    return chunks, starts_tracks, n_chunks, state[7]
+    with spans.span('match'):
+        state = match_coarse(feats_a, len_a, feats_v, len_v, nf=nf,
+                             mark=mark)
+        starts_tracks = state[6]
+        n_chunks = starts_tracks.shape[1] // FINE_CHUNK
+        nb = nb_for(feats_a.shape[1])
+        chunks = []
+        for c in range(n_chunks):
+            chunk = match_fine_chunk(*state[:6], starts_tracks,
+                                     c * FINE_CHUNK, nb)
+            chunks.append(chunk[:min(FINE_CHUNK, nb - c * FINE_CHUNK)])
+        if mark:
+            mark('fine')
+        return chunks, starts_tracks, n_chunks, state[7]
 
 
 def match_stream_pair(dev_av, len_a, len_v):
@@ -499,18 +502,19 @@ def extract_and_match(pcm_a_i16, len_a, pcm_v_i16, len_v, mark=None):
     Returns (quals, offs, starts, feats_a (5, S_pad_a // 210),
     feats_v (5, S_pad_v // 210), margin)."""
     from ..ops.features import feature_stack
-    feats = []
-    for pcm, n_true in ((pcm_a_i16, len_a), (pcm_v_i16, len_v)):
-        f = feature_stack(pcm, pcm.shape[1] // BLOCK)
-        idx = torch.arange(f.shape[1], device=f.device)[None, :]
-        feats.append(torch.where(idx < n_true, f,
-                                 torch.zeros((), device=f.device)))
-    feats_a, feats_v = feats
-    if mark:
-        mark('features')
-    ms_a, norms_a = preprocess_features(feats_a)
-    ms_v, norms_v = preprocess_features(feats_v)
-    quals, offs, starts, _, margin = _match_core(
-        ms_a, norms_a, feats_a[0], len_a, ms_v, norms_v, feats_v[0], len_v,
-        mark=mark)
-    return quals, offs, starts, feats_a, feats_v, margin
+    with spans.span('match'):
+        feats = []
+        for pcm, n_true in ((pcm_a_i16, len_a), (pcm_v_i16, len_v)):
+            f = feature_stack(pcm, pcm.shape[1] // BLOCK)
+            idx = torch.arange(f.shape[1], device=f.device)[None, :]
+            feats.append(torch.where(idx < n_true, f,
+                                     torch.zeros((), device=f.device)))
+        feats_a, feats_v = feats
+        if mark:
+            mark('features')
+        ms_a, norms_a = preprocess_features(feats_a)
+        ms_v, norms_v = preprocess_features(feats_v)
+        quals, offs, starts, _, margin = _match_core(
+            ms_a, norms_a, feats_a[0], len_a, ms_v, norms_v, feats_v[0],
+            len_v, mark=mark)
+        return quals, offs, starts, feats_a, feats_v, margin

@@ -23,6 +23,7 @@ import torch
 from ..alignment.matching import (_match_core, _qual_dequantize_f16,
                                   _qual_quantize_u8)
 from ..alignment.preprocess import preprocess_features
+from ..utils import spans
 
 
 def make_mesh(n_devices=None):
@@ -44,15 +45,16 @@ def device_align_step(feats_a, len_a, feats_v, len_v):
     the host stages take (video frame = starts[b] + off). The qualities
     ride the u8 transport grid of the single-pair paths, so sharded and
     serial results agree."""
-    feats_a = feats_a.float()
-    feats_v = feats_v.float()
-    ms_a, norms_a = preprocess_features(feats_a)
-    ms_v, norms_v = preprocess_features(feats_v)
-    quals, offs, starts, _, margin = _match_core(
-        ms_a, norms_a, feats_a[0], int(len_a),
-        ms_v, norms_v, feats_v[0], int(len_v))
-    return (_qual_dequantize_f16(_qual_quantize_u8(quals)),
-            offs.to(torch.int16), starts, margin)
+    with spans.span('match'):
+        feats_a = feats_a.float()
+        feats_v = feats_v.float()
+        ms_a, norms_a = preprocess_features(feats_a)
+        ms_v, norms_v = preprocess_features(feats_v)
+        quals, offs, starts, _, margin = _match_core(
+            ms_a, norms_a, feats_a[0], int(len_a),
+            ms_v, norms_v, feats_v[0], int(len_v))
+        return (_qual_dequantize_f16(_qual_quantize_u8(quals)),
+                offs.to(torch.int16), starts, margin)
 
 
 def batched_match(feats_a, lens_a, feats_v, lens_v):
