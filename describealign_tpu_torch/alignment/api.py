@@ -9,9 +9,11 @@ streaming LIS -> host tail (continuity filter, rescale, compression, L1
 fit, pass 2, outputs) with the 5-stream coarse retry on low confidence.
 Return tuples and printed progress / WARNING lines are the JAX package's.
 
-align_batch_from_pcm pipelines a list of pairs: the calling thread
-extracts features and dispatches each pair's matcher, pool threads wait
-for each pair's one result buffer and run the host stages.
+align_batch_from_pcm pipelines a list of pairs: two feature threads
+extract each pair's two streams ahead of it, the calling thread uploads
+them and dispatches each pair's matcher, pool threads wait for each
+pair's one result buffer and run the host stages. align_from_pcm
+extracts the video's stream on a helper thread beside the description's.
 
 features='device' (both PCM entry points; the JAX package reads
 DESCRIBEALIGN_FEATURES=device) uploads the int16 PCM instead, each stream
@@ -32,6 +34,7 @@ transports, the pull modes and the separate pull pool, and the profiler
 directory. The port reads no DESCRIBEALIGN_* setting; its defaults are the
 JAX package's.
 """
+import collections
 import contextlib
 import ctypes
 import os
@@ -107,6 +110,16 @@ def host_features_padded(pcm_i16, true_samples=None, npad=None,
             k = min(len(f), n)
             out[j, :k] = f[:k]
         return out, n
+
+
+def _stream_features(request, token, pcm_i16, true_samples, npad, frontend):
+    """host_features_padded of one stream on a helper thread, under
+    `request` (installed there, so its spans go to the caller's request)
+    and, if `token`, a host token. It calls the module's
+    host_features_padded by name, on the caller's own PCM array."""
+    with spans.installed(request), \
+            (_host_token() if token else contextlib.nullcontext()):
+        return host_features_padded(pcm_i16, true_samples, npad, frontend)
 
 
 def _feature_path(features, frontend='cascade'):
@@ -239,14 +252,20 @@ def align_from_pcm(video_pcm_i16, audio_pcm_i16, fit_backend=None,
     sv = video_samples or video_pcm_i16.shape[1]
     sa = audio_samples or audio_pcm_i16.shape[1]
     npad = max(_bucket_pad(sv // 210), _bucket_pad(sa // 210))
-    feats_v_np, nv = host_features_padded(video_pcm_i16, sv, npad, frontend)
+    # the video's stream on a helper thread beside the description's (the
+    # native extractor releases the GIL); every line prints from here
+    with ThreadPoolExecutor(max_workers=1) as helper:
+        video = helper.submit(_stream_features, spans.current(), False,
+                              video_pcm_i16, sv, npad, frontend)
+        if combine_prints:
+            # the audio stream was decoded ahead with the video; the
+            # reference's line sequence is kept (describealign.py:1109-1113)
+            print("  reading audio file...       \r", end='')
+            print("  computing audio features...\r", end='')
+        feats_a_np, na = host_features_padded(audio_pcm_i16, sa, npad,
+                                              frontend)
+        feats_v_np, nv = video.result()
     dev_v = _upload(feats_v_np, device)
-    if combine_prints:
-        # the audio stream was decoded ahead with the video; the
-        # reference's line sequence is kept (describealign.py:1109-1113)
-        print("  reading audio file...       \r", end='')
-        print("  computing audio features...\r", end='')
-    feats_a_np, na = host_features_padded(audio_pcm_i16, sa, npad, frontend)
     dev_a = _upload(feats_a_np, device)
     if combine_prints:
         print("  memorizing video...        \r", end='')
@@ -453,12 +472,15 @@ def align_batch_from_pcm(pairs, fit_backend=None, device_depth=4,
                          mesh=None):
     """Batch fast path: list of (video_pcm_i16, audio_pcm_i16) pairs.
 
-    The calling thread extracts each pair's features and dispatches its
-    matcher, with at most device_depth + 1 pairs' device results
+    With host features, two feature threads extract each pair's two
+    streams ahead of its dispatch (for at most max(2, device_depth + 1)
+    pairs beyond it); the calling thread uploads them and dispatches the
+    pair's matcher, with at most device_depth + 1 pairs' device results
     outstanding; host_workers pool threads wait for each pair's result
-    buffer and run the host stages (the native LIS, fit and pass 2 release
-    the GIL). true_samples: per pair (video, audio) true sample counts
-    when the PCM arrays are padded. device: where the matcher runs.
+    buffer and run the host stages (the native extractor, LIS, fit and
+    pass 2 release the GIL). true_samples: per pair (video, audio) true
+    sample counts when the PCM arrays are padded. device: where the
+    matcher runs.
     features: as in align_from_pcm; 'device' dispatches each pair's PCM
     upload and extract_and_match (api.py:265-311). frontend: as in
     align_from_pcm.
@@ -515,7 +537,7 @@ def _pull_dense_parts(buf, n_tracks):
 
 
 def _pipelined(pairs, true_samples, dispatch, refine, host_workers,
-               device_depth, mesh):
+               device_depth, mesh, frontend=None):
     """The batch pipeline of every batch route (api.py:265-311, 380-717).
 
     - the calling thread runs dispatch(v, a, sv, sa, npad, device) for
@@ -527,6 +549,13 @@ def _pipelined(pairs, true_samples, dispatch, refine, host_workers,
       slot as soon as the bytes are on the host, and returns
       refine(parts, sv, sa, device): the CPU stages, under the core-count
       token.
+
+    frontend: given by the host-feature routes. Each pair's two streams
+    are then extracted ahead of its dispatch on the batch's feature pool,
+    two threads, one task per stream (_stream_features: under the pair's
+    request and a host token), submitted in pair order, for at most
+    max(2, device_depth + 1) pairs beyond the one being dispatched; v and
+    a are then the futures of the pair's video and description tasks.
 
     mesh: the devices; pair i runs on mesh[i % len(mesh)], and its npad is
     the common bucket of its group of len(mesh) pairs (the largest of the
@@ -540,10 +569,12 @@ def _pipelined(pairs, true_samples, dispatch, refine, host_workers,
     matcher state on its device, on the same stream as the dispatches.
     """
     n_dev = len(mesh)
-    in_flight = threading.Semaphore(max(2, device_depth + 1)
-                                    * len(set(mesh)))
+    depth = max(2, device_depth + 1)
+    in_flight = threading.Semaphore(depth * len(set(mesh)))
     buckets = [max(_bucket_pad(sv // 210), _bucket_pad(sa // 210))
                for sv, sa in true_samples]
+    npads = [max(buckets[i - i % n_dev:i - i % n_dev + n_dev])
+             for i in range(len(buckets))]
 
     def settle_and_refine(parts, done, sv, sa, request, device):
         with spans.installed(request):
@@ -563,21 +594,34 @@ def _pipelined(pairs, true_samples, dispatch, refine, host_workers,
                 return fn(*args)
         return run
 
+    def extract(j):
+        # pair j's request, and its two streams' tasks (video, description)
+        request = spans.fork()
+        return request, [features.submit(_stream_features, request, True,
+                                         pcm, s, npads[j], frontend)
+                         for pcm, s in zip(pairs[j], true_samples[j])]
+
     futs = []
+    ahead = collections.deque()     # extract(j) of pairs not yet dispatched
     pool = ThreadPoolExecutor(max_workers=host_workers)
+    features = (ThreadPoolExecutor(max_workers=2) if frontend is not None
+                else None)
     try:
         for i, ((v, a), (sv, sa)) in enumerate(zip(pairs, true_samples)):
             device = mesh[i % n_dev]
-            g0 = i - i % n_dev
-            npad = max(buckets[g0:g0 + n_dev])
-            request = spans.fork()
+            if features is None:
+                request = spans.fork()
+            else:
+                while len(ahead) < min(len(pairs) - i, 1 + depth):
+                    ahead.append(extract(i + len(ahead)))
+                request, (v, a) = ahead.popleft()
             with spans.installed(request):
                 with spans.span('batch.slot_wait'):
                     in_flight.acquire()
                 try:
                     with spans.span('batch.dispatch'):
                         parts, done = on_device(dispatch)(v, a, sv, sa,
-                                                          npad, device)
+                                                          npads[i], device)
                 except BaseException:
                     # a failing dispatch must not keep its slot; the first
                     # error aborts the batch
@@ -588,8 +632,11 @@ def _pipelined(pairs, true_samples, dispatch, refine, host_workers,
         with spans.span('batch.drain'):
             return [f.result() for f in futs]
     finally:
-        # pairs already handed to the pool finish (and release their
-        # slots); none is left running when the call returns or raises
+        # feature tasks not started are dropped, pairs already handed to
+        # the pool finish (and release their slots); no thread is left
+        # running when the call returns or raises
+        if features is not None:
+            features.shutdown(wait=True, cancel_futures=True)
         pool.shutdown(wait=True, cancel_futures=True)
 
 
@@ -616,15 +663,20 @@ def _to_host(tensors, device):
     return host, done
 
 
-def _upload_pair_features(v, a, sv, sa, npad, device, frontend):
-    """Both streams' host features (native code, GIL released) padded to
-    npad, uploaded as one pinned (2, 5, npad) f16 array ([0] = audio, [1]
-    = video) without a host wait. Returns (the device array, fa, fv, na,
+def _upload_pair_features(video, audio, npad, device):
+    """Wait for a pair's two host feature stacks, then upload both as one
+    pinned (2, 5, npad) f16 array ([0] = audio, [1] = video) without a
+    host wait. video, audio: the futures of the pair's two feature tasks,
+    each of host_features_padded's (stack, frames), started ahead of the
+    dispatch on the batch's feature pool (_pipelined). Counts, per pair,
+    whether both were done when asked (`features.ready`) or the call
+    waited (`features.waited`). Returns (the device array, fa, fv, na,
     nv): the f32 features for the host stages and the true frame
     counts."""
-    with _host_token():
-        fv, nv = host_features_padded(v, sv, npad, frontend)
-        fa, na = host_features_padded(a, sa, npad, frontend)
+    spans.count('features.ready' if video.done() and audio.done()
+                else 'features.waited')
+    fv, nv = video.result()
+    fa, na = audio.result()
     with spans.span('features.upload'):
         fav_t = torch.empty((2, 5, npad), dtype=torch.float16,
                             pin_memory=device.type == 'cuda')
@@ -637,14 +689,15 @@ def _upload_pair_features(v, a, sv, sa, npad, device, frontend):
 def _align_batch_streamed(pairs, true_samples, fit_backend, host_workers,
                           device_depth, device, frontend='cascade'):
     """The host-feature batch (api.py:380-664, dense transport): the
-    dispatching thread extracts pair i's features and uploads them
-    (_upload_pair_features), dispatches the matcher and the one-buffer
-    transport and starts the buffer's copy; the pool thread runs the
-    native LIS feed and the refinement tail (_pipelined)."""
+    feature pool extracts pair i's two streams ahead; the dispatching
+    thread uploads them (_upload_pair_features), dispatches the matcher
+    and the one-buffer transport and starts the buffer's copy; the pool
+    thread runs the native LIS feed and the refinement tail
+    (_pipelined)."""
 
-    def dispatch(v, a, sv, sa, npad, device):
-        dev_av, fa, fv, na, nv = _upload_pair_features(v, a, sv, sa, npad,
-                                                       device, frontend)
+    def dispatch(video, audio, sv, sa, npad, device):
+        dev_av, fa, fv, na, nv = _upload_pair_features(video, audio, npad,
+                                                       device)
         chunks, starts_dev, _, margin_dev = matching.match_stream_pair(
             dev_av, na, nv)
         combo = matching.concat_chunks_with_starts(chunks, starts_dev,
@@ -662,7 +715,7 @@ def _align_batch_streamed(pairs, true_samples, fit_backend, host_workers,
                                       quiet=True)
 
     return _pipelined(pairs, true_samples, dispatch, refine, host_workers,
-                      device_depth, [device])
+                      device_depth, [device], frontend)
 
 
 def _align_batch_device(pairs, true_samples, fit_backend, host_workers,
@@ -693,7 +746,8 @@ def _align_batch_sharded(pairs, true_samples, mesh, fit_backend,
     (_pipelined): the pairs in groups of len(mesh), pair i on
     mesh[i % len(mesh)], each group's features padded to the group's
     COMMON bucket (it sets kv and the band clamps, so a pair may see
-    another width than on the serial path) and uploaded as f16; the
+    another width than on the serial path), extracted ahead on the
+    feature pool and uploaded as f16; the
     device side is parallel.batch.device_align_step (the single-shot
     matcher, the u8 quality transport); the pool threads run
     lis_from_match and the host tail with its retry on the pair's device
@@ -704,9 +758,9 @@ def _align_batch_sharded(pairs, true_samples, mesh, fit_backend,
     bucket taken over its real pairs as there."""
     from ..parallel.batch import device_align_step
 
-    def dispatch(v, a, sv, sa, npad, device):
-        dev_av, fa, fv, na, nv = _upload_pair_features(v, a, sv, sa, npad,
-                                                       device, frontend)
+    def dispatch(video, audio, sv, sa, npad, device):
+        dev_av, fa, fv, na, nv = _upload_pair_features(video, audio, npad,
+                                                       device)
         host, done = _to_host(device_align_step(dev_av[0], na, dev_av[1],
                                                 nv), device)
         return (host, fa, fv, na, nv), done
@@ -719,7 +773,7 @@ def _align_batch_sharded(pairs, true_samples, mesh, fit_backend,
                                         device, quiet=True)
 
     return _pipelined(pairs, true_samples, dispatch, refine, host_workers,
-                      device_depth, mesh)
+                      device_depth, mesh, frontend)
 
 
 def _rescale_native(feats_a_np, feats_v_np, na, nv, xi, yi):

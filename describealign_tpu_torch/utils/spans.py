@@ -6,7 +6,8 @@ A call to an entry point (align_from_pcm, align, align_batch_from_pcm:
 recording (torch.autograd._profiler_enabled()); there is no setting. The
 entry makes a request (a fresh id) that lives in a thread-local. Work
 handed to another thread takes a child request (`fork`: a pair of a batch
-gets its own id, with the batch's as parent), which that thread installs
+gets its own id, with the batch's as parent), or the request itself
+(`current`: a helper thread of one alignment), which that thread installs
 for the work's duration (`installed`).
 
 span(name) keeps (id, name, request, parent span, thread, t0_ns, t1_ns),
@@ -186,6 +187,12 @@ def fork():
     thread does on its behalf; None outside a recorded call."""
     outer = _local.request
     return None if outer is None else _new_request('pair', outer.id)
+
+
+def current():
+    """This thread's current request (None outside a recorded call), for a
+    helper thread that does part of the same request's work to install."""
+    return _local.request
 
 
 @contextlib.contextmanager

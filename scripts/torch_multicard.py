@@ -35,6 +35,7 @@ import sys
 import threading
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -199,13 +200,16 @@ def batch(cards, smi):
                for sv, sa in lens[:len(cards)])
 
     def dispatch():
-        for j, ((v, a), (sv, sa)) in enumerate(zip(pairs[:len(cards)],
-                                                   lens[:len(cards)])):
-            with torch.cuda.device(cards[j]):
-                dev_av, _, _, na, nv = api._upload_pair_features(
-                    v, a, sv, sa, npad, cards[j], "cascade")
-                api._to_host(device_align_step(dev_av[0], na, dev_av[1],
-                                               nv), cards[j])
+        with ThreadPoolExecutor(max_workers=2) as feats:
+            for j, ((v, a), (sv, sa)) in enumerate(zip(pairs[:len(cards)],
+                                                       lens[:len(cards)])):
+                with torch.cuda.device(cards[j]):
+                    dev_av, _, _, na, nv = api._upload_pair_features(
+                        feats.submit(api.host_features_padded, v, sv, npad),
+                        feats.submit(api.host_features_padded, a, sa, npad),
+                        npad, cards[j])
+                    api._to_host(device_align_step(dev_av[0], na,
+                                                   dev_av[1], nv), cards[j])
     waits = host_waits(dispatch)
     sync_all()
     auto = _auto_mesh()

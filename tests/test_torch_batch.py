@@ -21,7 +21,9 @@ everything but the margin is equal and the margin is within 1/500.
 Against the port's own align_from_pcm the margin is the f32 one: within
 one f16 rounding, 1e-3 relative.
 """
+import inspect
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -77,14 +79,28 @@ def floor(pairs):
     return value
 
 
+def _recording(real, calls):
+    """host_features_padded that records, as the benchmark's probes do,
+    (the PCM array it was given, the stack it made, the thread)."""
+    sig = inspect.signature(real)
+
+    def recorded(*args, **kwargs):
+        out = real(*args, **kwargs)
+        pcm = sig.bind(*args, **kwargs).arguments['pcm_i16']
+        calls.append((pcm, out[0], threading.get_ident()))
+        return out
+    return recorded
+
+
 @pytest.fixture(scope="module")
 def results(pairs, floor):
     """{'dense': JAX batch with the dense transport, 'compact': JAX batch
     as shipped, 'port': the port's batch, 'single': the port's
     align_from_pcm per pair, 'retries': how often the port's retry ran -
     all with the floor placed; 'plain': the port's batch with the shipped
-    floor, no retry}."""
-    retries = []
+    floor, no retry; 'stacks': what the port's batch extracted, as
+    _recording records it}."""
+    retries, stacks = [], []
     real_retry = tapi._coarse_retry
 
     def counting_retry(*args, **kwargs):
@@ -95,8 +111,10 @@ def results(pairs, floor):
         mp.setattr(jm, 'COARSE_MARGIN_FLOOR', floor)
         mp.setattr(tm, 'COARSE_MARGIN_FLOOR', floor)
         mp.setattr(tapi, '_coarse_retry', counting_retry)
+        mp.setattr(tapi, 'host_features_padded',
+                   _recording(tapi.host_features_padded, stacks))
         out = {'port': tapi.align_batch_from_pcm(pairs, device='cpu'),
-               'retries': len(retries)}
+               'retries': len(retries), 'stacks': list(stacks)}
         out['single'] = [tapi.align_from_pcm(v, a, device='cpu')
                          for v, a in pairs]
         mp.setenv('DESCRIBEALIGN_COMPACT', '0')
@@ -139,6 +157,93 @@ def test_batch_matches_port_single_pair(results):
     for got, want in zip(results['port'], results['single']):
         _assert_same_but_margin(got, want)
         np.testing.assert_allclose(got[5], want[5], rtol=1e-3)
+
+
+def _assert_own_arrays(pairs, stacks, npads, caller):
+    """Each pair's two streams extracted once, off the calling thread,
+    from the pair's own PCM arrays (identity, as the benchmark's probes
+    match them), into the stacks a direct call makes."""
+    assert len(stacks) == 2 * len(pairs)
+    for (v, a), npad in zip(pairs, npads):
+        for pcm in (v, a):
+            (stack, thread), = [(f, t) for x, f, t in stacks if x is pcm]
+            assert thread != caller
+            np.testing.assert_array_equal(
+                stack, tapi.host_features_padded(pcm, pcm.shape[1],
+                                                 npad)[0])
+
+
+def test_batch_stacks_are_made_from_the_pairs_own_arrays(pairs, results):
+    npads = [max(tapi._bucket_pad(v.shape[1] // 210),
+                 tapi._bucket_pad(a.shape[1] // 210)) for v, a in pairs]
+    _assert_own_arrays(pairs, results['stacks'], npads,
+                       threading.get_ident())
+
+
+def test_sharded_stacks_are_made_from_the_pairs_own_arrays(pairs,
+                                                           monkeypatch):
+    """The mesh route: each group's common bucket, the same feature pool."""
+    stacks = []
+    monkeypatch.setattr(tapi, 'host_features_padded',
+                        _recording(tapi.host_features_padded, stacks))
+    got = tapi.align_batch_from_pcm(pairs[:2], device='cpu',
+                                    mesh=['cpu'] * 2)
+    monkeypatch.undo()
+    assert len(got) == 2
+    npad = max(max(tapi._bucket_pad(v.shape[1] // 210),
+                   tapi._bucket_pad(a.shape[1] // 210))
+               for v, a in pairs[:2])
+    _assert_own_arrays(pairs[:2], stacks, [npad] * 2,
+                       threading.get_ident())
+
+
+@pytest.mark.parametrize("device_depth", [0, 1, 4])
+def test_features_start_ahead_of_the_dispatch(device_depth, monkeypatch):
+    """With extraction that sleeps: pair i+1's extraction starts before
+    pair i's dispatch returns, no extraction starts more than
+    max(2, device_depth + 1) pairs beyond the last dispatch returned, and
+    each dispatch gets its own pair's stacks, in input order."""
+    n, depth = 9, max(2, device_depth + 1)
+    pairs = [(np.full((1, 210 * 50), j, np.int16),
+              np.full((2, 210 * 60), j, np.int16)) for j in range(n)]
+    which = {id(x): j for j, pair in enumerate(pairs) for x in pair}
+    events, lock = [], threading.Lock()
+
+    def log(kind, j):
+        with lock:
+            events.append((kind, j))
+
+    def sleeping(pcm_i16, true_samples=None, npad=None, frontend='cascade'):
+        log('start', which[id(pcm_i16)])
+        time.sleep(0.02)
+        return (np.full((5, npad), pcm_i16[0, 0], np.float32),
+                true_samples // 210)
+
+    def dispatch(video, audio, sv, sa, npad, device):
+        dev_av, fa, fv, na, nv = tapi._upload_pair_features(video, audio,
+                                                            npad, device)
+        time.sleep(0.03)
+        log('dispatched', int(fv[0, 0]))
+        assert fa[0, 0] == fv[0, 0] and (nv, na) == (50, 60)
+        return int(fv[0, 0]), None
+
+    monkeypatch.setattr(tapi, 'host_features_padded', sleeping)
+    got = tapi._pipelined(
+        pairs, [(v.shape[1], a.shape[1]) for v, a in pairs], dispatch,
+        lambda parts, sv, sa, device: parts, 2, device_depth,
+        [torch.device('cpu')], 'cascade')
+    assert got == list(range(n))
+    order = {e: k for k, e in enumerate(events)}
+    assert sorted(j for kind, j in events if kind == 'start') == sorted(
+        list(range(n)) * 2)
+    for i in range(n - 1):
+        assert order[('start', i + 1)] < order[('dispatched', i)]
+    returned = 0
+    for kind, j in events:
+        if kind == 'dispatched':
+            returned += 1
+        else:
+            assert j - returned <= depth
 
 
 def test_batch_prints_nothing(pairs, capsys):
@@ -212,8 +317,8 @@ def test_match_stream_pair_is_match_stream(pairs):
 def test_matcher_error_aborts_the_batch_and_leaves_no_thread(pairs,
                                                             monkeypatch):
     """A matcher error in pair 2 of 3 reaches the caller; the call returns
-    with no pool thread left, whether the dispatching thread or a pool
-    thread (the retry's matcher) raised."""
+    with no pool thread left, whether the dispatching thread, a pool
+    thread (the retry's matcher) or a feature thread raised."""
     real = tm.match_stream_pair
     calls = []
 
@@ -240,6 +345,22 @@ def test_matcher_error_aborts_the_batch_and_leaves_no_thread(pairs,
     with pytest.raises(RuntimeError, match="forced launch failure"):
         tapi.align_batch_from_pcm(pairs[:2], device='cpu')
     assert threading.active_count() == before
+    monkeypatch.undo()
+
+    # the same from the feature pool: pair 2's description fails, on one
+    # card and on a mesh
+    real_features = tapi.host_features_padded
+
+    def failing_features(pcm_i16, *args, **kwargs):
+        if pcm_i16 is pairs[1][1]:
+            raise RuntimeError("extract_features_i16: forced failure")
+        return real_features(pcm_i16, *args, **kwargs)
+
+    monkeypatch.setattr(tapi, 'host_features_padded', failing_features)
+    for kw in (dict(device='cpu'), dict(mesh=['cpu'] * 2)):
+        with pytest.raises(RuntimeError, match="extract_features_i16"):
+            tapi.align_batch_from_pcm(pairs, device_depth=1, **kw)
+        assert threading.active_count() == before
 
 
 def test_batch_defaults_to_cuda_and_names_it():

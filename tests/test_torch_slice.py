@@ -8,6 +8,8 @@ on the same path, so equal chains give bit-equal times. The margin is a
 difference of two f32 track scores summed in another order: rtol 1e-5.
 Printed progress and WARNING lines must be identical.
 """
+import threading
+
 import numpy as np
 import pytest
 
@@ -89,6 +91,38 @@ def test_align_from_pcm_padded_pcm_parity(capsys):
     _assert_same_result(got, tapi.align_from_pcm(v, a, device='cpu'))
     assert got_out == want_out
     assert got_out.startswith("  computing video features... \r")
+
+
+@pytest.mark.parametrize("combine_prints", [False, True])
+def test_align_from_pcm_extracts_both_streams_at_once(combine_prints,
+                                                      monkeypatch, capsys):
+    """The two streams' host features overlap in time: each call waits at
+    a barrier that only both calls together pass (a serial pair of calls
+    breaks it after its timeout). The video's runs on a helper thread, the
+    description's on the calling thread, each on the caller's own array;
+    the result and every printed line stay the JAX package's."""
+    v, a = _i16_pair(**PAIRS["lead_in"])
+    kw = dict(combine_prints=combine_prints)
+    capsys.readouterr()
+    want = japi.align_from_pcm(v, a, **kw)
+    want_out = capsys.readouterr().out
+    real = tapi.host_features_padded
+    both = threading.Barrier(2, timeout=60)
+    calls = []
+
+    def at_once(pcm_i16, *args, **kwargs):
+        calls.append((pcm_i16, threading.get_ident()))
+        both.wait()
+        return real(pcm_i16, *args, **kwargs)
+
+    monkeypatch.setattr(tapi, 'host_features_padded', at_once)
+    got = tapi.align_from_pcm(v, a, device='cpu', **kw)
+    got_out = capsys.readouterr().out
+    _assert_same_result(got, want)
+    assert got_out == want_out
+    threads = {pcm is v: t for pcm, t in calls}
+    assert len(calls) == 2 and set(threads) == {True, False}
+    assert threads[False] == threading.get_ident() != threads[True]
 
 
 def test_low_margin_retry_parity(monkeypatch, capsys):

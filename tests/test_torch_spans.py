@@ -69,12 +69,15 @@ def test_one_alignment_under_the_profiler(pair, tmp_path):
     records = snap['spans']
     assert {s.name for s in records} == SINGLE_SPANS
     assert len({s.request for s in records}) == 1
-    assert len({s.thread for s in records}) == 1
     (req,) = snap['requests'].values()
     assert (req.name, req.parent) == ('align', None)
     _check_nesting(records)
     root = next(s for s in records if s.name == 'align')
     assert root.parent is None
+    # the video's features on the helper thread, in the same request
+    (helper,) = [s for s in records if s.thread != root.thread]
+    assert (helper.name, helper.parent) == ('features.host', None)
+    records = [s for s in records if s is not helper]
     assert all(s.parent is not None for s in records if s is not root)
     # the layers in their order: features, matcher, LIS, pass 1, pass 2
     first = {}
@@ -121,12 +124,22 @@ def test_batch_pairs_on_the_pool_threads(pair):
     root = next(s for s in records if s.name == 'batch')
     assert (root.request, root.thread, root.parent) == (batch.id, main,
                                                         None)
+    featuring = {s.thread for s in records if s.name == 'features.host'}
+    assert main not in featuring and len(featuring) <= 2
     for r in pairs:
         mine = [s for s in records if s.request == r.id]
         on_main = {s.name for s in mine if s.thread == main}
-        pooled = [s for s in mine if s.thread != main]
-        assert {'batch.slot_wait', 'batch.dispatch', 'features.host',
-                'features.upload', 'match'} <= on_main
+        assert {'batch.slot_wait', 'batch.dispatch', 'features.upload',
+                'match'} <= on_main
+        # the feature pool: the two streams, each under a host token
+        extracted = [s for s in mine if s.thread in featuring]
+        assert sorted(s.name for s in extracted) == [
+            'batch.token_wait', 'batch.token_wait', 'features.host',
+            'features.host']
+        assert all(s.parent is None for s in extracted)
+        assert sum(snap['counters'][r.id].get(k, 0) for k in (
+            'features.ready', 'features.waited')) == 1
+        pooled = [s for s in mine if s.thread not in featuring | {main}]
         names = {s.name for s in pooled}
         assert {'batch.result_wait', 'batch.token_wait', 'batch.refine',
                 'tail.lis', 'tail.pass1', 'tail.pass2'} <= names
