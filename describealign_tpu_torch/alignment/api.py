@@ -141,17 +141,21 @@ def _pcm_to_device(pcm_i16, device):
     """(C, S) int16 PCM zero-padded to its bucket, as _pad_pcm_i16 pads it,
     on the device: on the card through pinned memory, copied without a
     host wait (the caching host allocator keeps the buffer until the copy
-    is done)."""
+    is done). Spans: `features.stage`, the host copy into the buffer with
+    its zero tail (synchronous, on the calling thread); `features.upload`,
+    the copy to the device."""
     c, s = pcm_i16.shape
-    with spans.span('features.upload'):
+    with spans.span('features.stage'):
         if device.type != 'cuda':
-            return torch.from_numpy(
+            buf = torch.from_numpy(
                 np.ascontiguousarray(_pad_pcm_i16(pcm_i16)))
-        buf = torch.empty((c, _padded_len(s)), dtype=torch.int16,
-                          pin_memory=True)
-        host = buf.numpy()
-        host[:, :s] = pcm_i16
-        host[:, s:] = 0
+        else:
+            buf = torch.empty((c, _padded_len(s)), dtype=torch.int16,
+                              pin_memory=True)
+            host = buf.numpy()
+            host[:, :s] = pcm_i16
+            host[:, s:] = 0
+    with spans.span('features.upload'):
         return buf.to(device, non_blocking=True)
 
 
@@ -229,6 +233,7 @@ def align_from_pcm(video_pcm_i16, audio_pcm_i16, fit_backend=None,
     fit_backend = fit_backend or DEFAULT_FIT_BACKEND
     mark = _timer(timings, device) if timings is not None else None
     if _feature_path(features, frontend) == 'device':
+        spans.count('features.device')
         na = (audio_samples or audio_pcm_i16.shape[1]) // 210
         nv = (video_samples or video_pcm_i16.shape[1]) // 210
         print("  memorizing video...        \r", end='')
@@ -726,6 +731,7 @@ def _align_batch_device(pairs, true_samples, fit_backend, host_workers,
     thread runs lis_from_match and the refinement tail (_pipelined)."""
 
     def dispatch(v, a, sv, sa, npad, device):
+        spans.count('features.device')
         out = matching.extract_and_match(
             _pcm_to_device(a, device), sa // 210,
             _pcm_to_device(v, device), sv // 210)

@@ -1,7 +1,8 @@
 """The port's spans and counters (describealign_tpu_torch/utils/spans.py)
 on the CPU: recorded only under torch.profiler, one request id per call,
 nested per thread, on the profiler's clock, handed to the batch's pool
-threads, counting the retry; the ring's bound.
+threads, counting the retry and the pairs whose features the device
+computes (staged and uploaded apart); the ring's bound.
 
 The pair is tests/test_torch_batch.py's retry pair (40 s of content, 3 s
 of narration); a confidence floor above any margin forces the retry.
@@ -163,6 +164,54 @@ def test_a_forced_retry_is_spanned_and_counted(pair, monkeypatch):
     (retry,) = [s for s in snap['spans'] if s.name == 'tail.retry']
     inside = {s.name for s in snap['spans'] if s.parent == retry.id}
     assert {'features.upload', 'match', 'tail.lis', 'tail.fetch'} <= inside
+
+
+def test_device_features_are_staged_uploaded_and_counted(pair):
+    with _profile():
+        api.align_from_pcm(*pair, device='cpu', features='device')
+    snap = spans.snapshot()
+    records = snap['spans']
+    _check_nesting(records)
+    (req,) = snap['requests']
+    assert snap['counters'] == {req: {'features.device': 1}}
+    root = next(s for s in records if s.name == 'align')
+    names = [s.name for s in sorted(records, key=lambda s: s.t0_ns)
+             if s.parent == root.id]
+    # each track (description, then video): staged, then uploaded
+    assert names[:4] == ['features.stage', 'features.upload'] * 2
+    assert 'features.host' not in {s.name for s in records}
+    assert all(s.request == req for s in records)
+
+
+def test_device_features_counted_once_per_pair_of_a_batch(pair):
+    main = threading.get_native_id()
+    with _profile():
+        out = api.align_batch_from_pcm([pair] * 3, device='cpu',
+                                       host_workers=2, features='device')
+    assert len(out) == 3
+    snap = spans.snapshot()
+    pairs = [r.id for r in snap['requests'].values() if r.name == 'pair']
+    assert len(pairs) == 3
+    assert {i: snap['counters'].get(i) for i in pairs} == {
+        i: {'features.device': 1} for i in pairs}
+    (batch,) = [r.id for r in snap['requests'].values()
+                if r.name == 'batch']
+    assert batch not in snap['counters']
+    for i in pairs:
+        on_main = [s.name for s in snap['spans']
+                   if s.request == i and s.thread == main]
+        assert on_main.count('features.stage') == 2
+        assert on_main.count('features.upload') == 2
+
+
+def test_the_host_route_neither_stages_nor_counts_device_features(pair):
+    with _profile():
+        api.align_from_pcm(*pair, device='cpu')
+        api.align_batch_from_pcm([pair] * 2, device='cpu', host_workers=1)
+    snap = spans.snapshot()
+    assert 'features.stage' not in {s.name for s in snap['spans']}
+    assert not any('features.device' in c
+                   for c in snap['counters'].values())
 
 
 def test_the_ring_drops_the_oldest_and_counts_them():
