@@ -58,13 +58,18 @@ Needs one CUDA device and nvcc; exits non-zero without them. Phases:
    (tests/data/torch_combine_expected.json), the wall time of combine()
    and of its stages, kernel launches;
 5. a feature film (95-min film, 101.4-min description, built at the
-   feature level, describealign_tpu_torch.film_pair) on the streamed
-   coarse DP: (a) the streamed and the materialized k-best DP on the film's
-   descriptors, equal paths, scores and margin, each one's time and peak
-   memory, and the fine kernel against its plain version on the film's
-   first and last chunks; (b) one end-to-end run through the feature-level
-   entry align() with its split, launches and peak memory, against the JAX
-   result (tests/data/torch_film_pair_expected.json) and the planted 202 s;
+   feature level, describealign_tpu_torch.film_pair) on the coarse DP's
+   branch that matching.coarse_streamed picks on the card: (a) the
+   streamed and the materialized k-best DP on the film's descriptors,
+   equal paths, scores and margin, each one's time and peak memory (the
+   materialized peak within matching.coarse_peak_bytes), and the fine
+   kernel against its plain version on the film's first and last chunks;
+   (b) two end-to-end runs through the feature-level entry align(), on the
+   branch the card allows and with the card reported full (streamed),
+   each with its split, launches (those of the branch its coarse pass
+   took) and peak memory, against the JAX result
+   (tests/data/torch_film_pair_expected.json) and the planted 202 s, the
+   second's answer equal to the first's;
 6. the batch: describealign_tpu_torch.bench_pair.build_batch_pairs() (8
    distinct ~22-min / ~27-min pairs, one of ~50 % similarity, one slowed
    by 3 %) through align_batch_from_pcm twice (first and warm) and one by
@@ -810,7 +815,8 @@ def timed_dp(matching, desc_a, desc_v, nb, streamed):
 
 
 def phase_film(device, smi):
-    """Phase 5: the feature film on the streamed coarse DP. Returns (the
+    """Phase 5: the feature film on the coarse DP's branch the card's
+    memory allows (matching.coarse_streamed). Returns (the
     kernels' launches in the end-to-end run, [(chunk b0, track,
     *kernel_vs_plain row)] on the film's first and last chunks, the DP
     kernels' dp_vs_plain row on one film tile, map_vs_plain's records of
@@ -833,16 +839,23 @@ def phase_film(device, smi):
     nb = matching.nb_for(npad)
     kv = ((npad - preprocess.WINDOW - max(matching.SUB_LANE_SHIFTS))
           // matching.COARSE_STRIDE + 1)
-    streamed = nb * kv > matching.COARSE_STREAM_ELEMS
+    # the branch the card's memory allows now; 5b reads the one its runs take
+    streamed = matching.coarse_streamed(nb, kv, device)
+    free, _ = torch.cuda.mem_get_info(device)
     print(f"[5 film] {na / 210 / 60:.1f}-min description, "
           f"{nv / 210 / 60:.1f}-min film, features built in {gen_s:.2f} s: "
           f"Npad {npad}, nb {nb}, kv {kv}, nb*kv {nb * kv} "
           f"({nb * kv / 2**20:.1f} Mi) vs COARSE_STREAM_ELEMS "
-          f"{matching.COARSE_STREAM_ELEMS} -> "
+          f"{matching.COARSE_STREAM_ELEMS}; {matching.COARSE_PASSES} x "
+          f"materialized peak "
+          f"{matching.coarse_peak_bytes(nb, kv) / 2**30:.3f} GiB + headroom "
+          f"{matching.COARSE_HEADROOM_BYTES / 2**30:.3f} GiB vs "
+          f"{free / 2**30:.2f} GiB free -> "
           f"{'streamed' if streamed else 'materialized'} branch ({smi})",
           flush=True)
-    if not streamed or (nb, kv) != (expected["nb"], expected["kv"]):
-        raise AssertionError("the film does not take the streamed branch")
+    if (nb, kv) != (expected["nb"], expected["kv"]):
+        raise AssertionError("the film's map differs from the expected "
+                             "fixture's")
 
     # (a) the streamed and the materialized DP on the film's descriptors
     t_phase = time.perf_counter()
@@ -855,13 +868,18 @@ def phase_film(device, smi):
     same = (all(torch.equal(a, b) for a, b in zip(sp, mp))
             and [float(x) for x in ss] == [float(x) for x in ms]
             and margins[0] == margins[1])
+    counted = matching.coarse_peak_bytes(nb, kv)
     print(f"[5a film DP] streamed {s_t:.2f} s, peak {s_mem / 2**30:.3f} GiB "
           f"| materialized {m_t:.2f} s, peak {m_mem / 2**30:.3f} GiB "
-          f"(above the descriptors) | track scores {[float(x) for x in ss]}, "
+          f"(above the descriptors; counted {counted / 2**30:.3f} GiB) | "
+          f"track scores {[float(x) for x in ss]}, "
           f"margin {margins[0]:.6f} | paths, scores and margin "
           f"{'equal' if same else 'DIFFER'} ({smi})", flush=True)
     if not same:
         raise AssertionError("streamed and materialized DPs disagree")
+    if m_mem > counted:
+        raise AssertionError("the materialized DP's peak exceeds "
+                             "matching.coarse_peak_bytes")
     # 2c: the score map's kernel on the film's tiles 0 and 1, alone and with
     # track 1 suppressed (the streamed DP's second pass), and the DP over
     # each tile from a zero row on the kernel's and on the plain tile
@@ -914,59 +932,133 @@ def phase_film(device, smi):
               flush=True)
     a_s = time.perf_counter() - t_phase
 
-    # (b) one end-to-end run through the feature-level entry align()
+    # (b) two end-to-end runs through the feature-level entry align(): on
+    # the branch the card's memory allows, then with the card reported
+    # full, which takes the streamed branch; each run's launches are held
+    # to the branch its own coarse pass took
+    tiles = -(-nb // matching.COARSE_CHUNK)
+    first = film_e2e(api, matching, video, audio, device)
+    check_film_e2e("5b film e2e", first, expected, n_chunks, tiles, nb, kv,
+                   a_s, smi)
+    total = torch.cuda.mem_get_info(device)[1]
+    patched = {"mem_get_info": lambda device=None: (0, total),
+               "memory_reserved": torch.cuda.memory_allocated}
+    saved = {k: getattr(torch.cuda, k) for k in patched}
+    try:
+        for k, fn in patched.items():
+            setattr(torch.cuda, k, fn)
+        full = film_e2e(api, matching, video, audio, device)
+    finally:
+        for k, fn in saved.items():
+            setattr(torch.cuda, k, fn)
+    check_film_e2e("5b film e2e, card reported full", full, expected,
+                   n_chunks, tiles, nb, kv, a_s, smi, want_streamed=True,
+                   same_as=first)
+    return ({"": first["launches"], "full": full["launches"]}, rows, dp_row,
+            map_rows)
+
+
+def film_e2e(api, matching, video, audio, device):
+    """One align() of the film on the card: {answer, printed, seconds,
+    launches, peak bytes, streamed: the flag each coarse pass gave
+    _k_best_tracks, margins: each pass's _coarse_margin}."""
+    k_best, coarse_margin = matching._k_best_tracks, matching._coarse_margin
+    run = {"streamed": [], "margins": []}
+
+    def recorded_k_best(desc_a, desc_v, nb, streamed, mark=None):
+        run["streamed"].append(streamed)
+        return k_best(desc_a, desc_v, nb, streamed, mark)
+
+    def recorded_margin(scores, a_mask, nb):
+        margin = coarse_margin(scores, a_mask, nb)
+        run["margins"].append(float(margin))
+        return margin
+
     split = {}
     torch.cuda.reset_peak_memory_stats()
     kernel_counts(reset=True)
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()) as out:
-        ax, vy, sim, _, slope = api.align(video, audio, video[0], audio[0],
-                                          device=device, timings=split)
-    e2e = time.perf_counter() - t0
-    launches = kernel_counts()
-    tiles = -(-nb // matching.COARSE_CHUNK)
-    peak = torch.cuda.max_memory_allocated()
-    printed = out.getvalue()
+    matching._k_best_tracks = recorded_k_best
+    matching._coarse_margin = recorded_margin
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            run["answer"] = api.align(video, audio, video[0], audio[0],
+                                      device=device, timings=split)
+        run["seconds"] = time.perf_counter() - t0
+    finally:
+        matching._k_best_tracks = k_best
+        matching._coarse_margin = coarse_margin
+    run.update(split=split, launches=kernel_counts(),
+               peak=torch.cuda.max_memory_allocated(),
+               printed=out.getvalue())
+    return run
+
+
+def check_film_e2e(tag, run, expected, n_chunks, tiles, nb, kv, a_s, smi,
+                   want_streamed=None, same_as=None):
+    """Print one film_e2e run and fail unless it agrees with the JAX
+    result, ran one coarse pass (streamed if want_streamed says so) and
+    launched the kernels that pass's branch launches."""
+    from describealign_tpu_torch.alignment import matching
+    ax, vy, sim, _, slope = run["answer"]
+    printed = run["printed"]
     start_off = float(ax[0] - vy[0])
     jx = np.asarray(expected["audio_times_s"])
     jy = np.asarray(expected["video_times_s"])
     node_err = float(np.max(np.abs(np.interp(jx, ax, vy) - jy)))
+    passes = run["streamed"]
+    streamed = passes[0] if len(passes) == 1 else None
+    margin = run["margins"][0] if len(run["margins"]) == 1 else float("nan")
+    tracks = matching.N_TRACKS
     checks = {
+        "one coarse pass": streamed is not None and len(run["margins"]) == 1,
         "start offset": abs(start_off - expected["start_offset_s"]) <= TOL_S,
         "planted 202 s": abs(start_off - PLANTED_OFFSET_S) <= TOL_S,
         "nodes": node_err <= TOL_S,
         "similarity": abs(sim - expected["similarity_percent"]) <= 0.5,
         "median slope": abs(slope - expected["median_slope"]) <= 1e-4,
-        "margin": (margins[0] > matching.COARSE_MARGIN_FLOOR
-                   and abs(margins[0] / expected["margin"] - 1) <= 1e-5),
+        "margin": (margin > matching.COARSE_MARGIN_FLOOR
+                   and abs(margin / expected["margin"] - 1) <= 1e-5),
         "no WARNING": "WARNING" not in printed,
         "no retry": "rechecking alignment" not in printed,
         # the streamed DP scores every tile twice (forward and back) and
-        # runs it forward twice and back once
-        "launches": launches == {
-            "coarse_score_map": 2 * tiles * matching.N_TRACKS,
-            "fine_match": n_chunks * matching.N_TRACKS,
-            "dp_forward": 2 * tiles * matching.N_TRACKS,
-            "dp_backtrace": tiles * matching.N_TRACKS,
+        # runs it forward twice and back once; the materialized one scores
+        # the map once and runs one forward and one backtrace a track
+        "launches": run["launches"] == {
+            "coarse_score_map": 2 * tiles * tracks if streamed else 1,
+            "fine_match": n_chunks * tracks,
+            "dp_forward": 2 * tiles * tracks if streamed else tracks,
+            "dp_backtrace": tiles * tracks if streamed else tracks,
             "pcm_frontend": 0, "polyphase_blur": 0,
             "fused_lasso_admm": 0, "pv_phase_lock": 0},
     }
-    print(f"[5b film e2e] {e2e:.2f} s | split "
-          + ", ".join(f"{k} {t:.3f} s" for k, t in split.items())
-          + f" | launches {launches} ({n_chunks} chunks and {tiles} tiles x "
+    if want_streamed is not None:
+        checks["branch"] = streamed is want_streamed
+    if same_as is not None:
+        checks["answer as the first run's"] = (
+            all(np.array_equal(np.asarray(x), np.asarray(y))
+                for x, y in zip(run["answer"], same_as["answer"]))
+            and run["margins"] == same_as["margins"])
+    branch = {True: "streamed", False: "materialized"}.get(
+        streamed, f"passes {passes}")
+    print(f"[{tag}] {run['seconds']:.2f} s | split "
+          + ", ".join(f"{k} {t:.3f} s" for k, t in run["split"].items())
+          + f" | {branch} coarse DP (nb*kv {nb * kv}), launches "
+          f"{run['launches']} ({n_chunks} chunks and {tiles} tiles x "
           f"{matching.N_TRACKS} tracks) | peak device memory "
-          f"{peak / 2**30:.3f} GiB | start offset {start_off:.4f} s (JAX "
-          f"{expected['start_offset_s']:.4f}, planted {PLANTED_OFFSET_S}), "
-          f"max node error {node_err * 1e3:.2f} ms over {len(jx)} JAX nodes, "
-          f"similarity {sim:.3f} (JAX {expected['similarity_percent']:.3f}), "
-          f"median slope {slope:.7f} (JAX {expected['median_slope']:.7f}), "
-          f"margin (5a) {margins[0]:.7f} (JAX {expected['margin']:.7f}) | "
-          f"phase 5a {a_s:.1f} s ({smi}) - "
+          f"{run['peak'] / 2**30:.3f} GiB | start offset {start_off:.4f} s "
+          f"(JAX {expected['start_offset_s']:.4f}, planted "
+          f"{PLANTED_OFFSET_S}), max node error {node_err * 1e3:.2f} ms over "
+          f"{len(jx)} JAX nodes, similarity {sim:.3f} (JAX "
+          f"{expected['similarity_percent']:.3f}), median slope "
+          f"{slope:.7f} (JAX {expected['median_slope']:.7f}), margin "
+          f"{margin:.7f} (JAX {expected['margin']:.7f}) | phase 5a "
+          f"{a_s:.1f} s ({smi}) - "
           + ", ".join(f"{k} {'ok' if ok else 'FAIL'}"
                       for k, ok in checks.items()), flush=True)
     if not all(checks.values()):
-        raise AssertionError(f"the film disagrees with JAX: {checks}")
-    return launches, rows, dp_row, map_rows
+        raise AssertionError(f"{tag}: the film disagrees with JAX or its "
+                             f"branch: {checks}")
 
 
 def host_waits(fn):
@@ -2904,7 +2996,7 @@ def main():
                                                        wav_dir.name)
     t_phase = phase_done(4, t_phase, smi)
 
-    # --- phase 5: a feature film through the streamed coarse DP -----------
+    # --- phase 5: a feature film through the coarse DP the card allows ----
     nodes.label = "5"
     film_launches, film_rows, film_dp, film_map = phase_film(device, smi)
     t_phase = phase_done(5, t_phase, smi)
@@ -2950,7 +3042,8 @@ def main():
     def by_phase(kernel):
         return {"3 align_from_pcm, 3 runs": launches[kernel],
                 "4 CLI": cli_launches[kernel],
-                "5 film": film_launches[kernel],
+                "5 film": film_launches[""][kernel],
+                "5 film, card reported full": film_launches["full"][kernel],
                 "6 batch of 8, warm call": batch_launches[kernel],
                 "7b align_from_pcm(features='device'), 3 runs":
                     dev_launches[kernel],

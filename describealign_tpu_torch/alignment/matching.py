@@ -21,8 +21,10 @@ all blocks at once, qualities left unquantized).
 The DP's steps run in ops/coarse_dp.py (dp_forward, dp_backtrace: two
 hand-written CUDA kernels on the card, torch loops on the CPU). Above
 COARSE_STREAM_ELEMS score-map elements (long media: a 95-minute film) it
-runs streamed, with the score map in 64-block tiles and one checkpointed
-cost row per tile, as the JAX package does.
+may run streamed, with the score map in 64-block tiles and one checkpointed
+cost row per tile, as the JAX package does: always on the CPU, and on the
+card when the materialized map does not fit in its free memory
+(coarse_streamed).
 """
 import numpy as np
 import torch
@@ -53,6 +55,22 @@ DP_JUMP_COST = 1.0
 SUB_LANE_SHIFTS = (0, 3, 6, 9, 12, 15, 18)
 COARSE_CHUNK = 64
 COARSE_STREAM_ELEMS = 192 * 1024 * 1024
+# Device memory a materialized coarse pass above COARSE_STREAM_ELEMS must
+# leave free beyond its counted peak (coarse_peak_bytes): room for what is
+# allocated outside that count after the query - kernel modules loaded
+# lazily on their first launch, library workspaces, another process on a
+# shared card - and for cached blocks the allocator cannot hand out whole.
+# 2 GiB is under 3 % of an 80-GB card and about two thirds of the film's
+# own peak (3.16 GiB), so an input whose map only just fits streams rather
+# than failing for want of memory.
+COARSE_HEADROOM_BYTES = 2 * 1024 ** 3
+# Coarse passes the budget of a materialized map covers at once on one
+# device: a batch's dispatching thread and up to 4 low-confidence retries
+# on its pool (host_workers' default is at most 4, api.align_batch_from_pcm).
+# The single entries run one pass at a time and are budgeted the same, so
+# the film (5 x 3.16 GiB + the headroom, 17.8 GiB) streams only on a card
+# with less free.
+COARSE_PASSES = 5
 QUAL_CODE_BASE = 0xA0
 FINE_CHUNK = 256
 COARSE_MARGIN_FLOOR = 0.04
@@ -184,21 +202,62 @@ def _k_best_tracks(desc_a, desc_v, nb, streamed, mark=None):
             v_paths.append(v_path)
             scores.append(score)
         return v_paths, scores
-    dev = desc_a.device
     p_map = _block_scores_local(desc_a, desc_v)
     if mark:
         mark('coarse_map')
     lanes = torch.arange(p_map.shape[1], dtype=torch.int32,
-                         device=dev)[None, :]
-    suppressed = p_map
+                         device=desc_a.device)[None, :]
     for _ in range(N_TRACKS):
-        v_path, score = _coarse_dp(suppressed)
+        if v_paths:
+            # the last track's lanes, suppressed in place: no track reads
+            # the map unsuppressed again (coarse_peak_bytes counts this)
+            near = (lanes - v_paths[-1][:, None]).abs_() <= SUPPRESS_LANES
+            p_map.masked_fill_(near, -1e30)
+            del near
+        v_path, score = _coarse_dp(p_map)
         v_paths.append(v_path)
         scores.append(score)
-        suppressed = torch.where(
-            torch.abs(lanes - v_path[:, None]) <= SUPPRESS_LANES,
-            torch.full((), -1e30, dtype=torch.float32, device=dev), suppressed)
     return v_paths, scores
+
+
+def coarse_peak_bytes(nb, kv):
+    """Device bytes the materialized branch of _k_best_tracks allocates at
+    its peak beyond its inputs, counted from the code: the (nb, kv) f32
+    map, and with it either one _coarse_dp's f32 cost rows (8 B an element)
+    or the suppression's int32 lane distances and bool mask (9 B); plus
+    the per-lane and per-block vectors (the lanes, the DP's zero row,
+    paths, the backtrace's scratch: under 32 B a lane or block)."""
+    return 9 * nb * kv + 32 * (nb + kv)
+
+
+def coarse_streamed(nb, kv, device):
+    """Whether the coarse pass over an (nb, kv) score map on `device` runs
+    streamed (_coarse_dp_streamed) rather than materialized:
+
+    - at or below COARSE_STREAM_ELEMS map elements: materialized, and no
+      memory is queried;
+    - above it on a device other than CUDA: streamed, as in the JAX
+      package, so the two take the same branch for every input;
+    - above it on a CUDA device: materialized when COARSE_PASSES times
+      coarse_peak_bytes, plus COARSE_HEADROOM_BYTES, fit in its free
+      memory (cudaMemGetInfo's free bytes and what the caching allocator
+      holds reserved but unallocated), else streamed.
+
+    The budget is not passed down from the routes: it covers the most
+    passes a batch runs at once with its default host_workers, each as if
+    none had allocated yet, so passes that query at the same moment all
+    fit. A batch given more host_workers may retry more films at once than
+    that covers."""
+    if nb * kv <= COARSE_STREAM_ELEMS:
+        return False
+    device = torch.device(device)
+    if device.type != 'cuda':
+        return True
+    free, _ = torch.cuda.mem_get_info(device)
+    free += (torch.cuda.memory_reserved(device)
+             - torch.cuda.memory_allocated(device))
+    return (COARSE_PASSES * coarse_peak_bytes(nb, kv) + COARSE_HEADROOM_BYTES
+            > free)
 
 
 def _coarse_margin(scores, a_mask, nb):
@@ -215,9 +274,10 @@ def _coarse_margin(scores, a_mask, nb):
 def _coarse_tracks(ms_a, norms_a, energy_a, len_a,
                    ms_v, norms_v, energy_v, len_v, nf=None, mark=None):
     """Masks + coarse score map + k-best DP tracks (matching.py:1100-1177).
-    Above COARSE_STREAM_ELEMS score-map elements (long media) the DP runs
-    streamed, as in the JAX package, so both take the same branch for
-    every input.
+    Materialized or streamed as coarse_streamed decides (streamed above
+    COARSE_STREAM_ELEMS on the CPU, as in the JAX package; on the card only
+    where the map does not fit); each pass counts 'coarse.streamed' or
+    'coarse.materialized'.
 
     Returns (a_mask, v_mask, starts_tracks (T, B) i32 band starts,
     centers (B,) best-track offset frames, margin f32 scalar), where
@@ -236,8 +296,9 @@ def _coarse_tracks(ms_a, norms_a, energy_a, len_a,
     ka = desc_a.shape[0]
     kv = desc_v.shape[1]
     nb = ka // COARSE_PER_BLOCK
-    v_paths, scores = _k_best_tracks(desc_a, desc_v, nb,
-                                     nb * kv > COARSE_STREAM_ELEMS, mark)
+    streamed = coarse_streamed(nb, kv, dev)
+    spans.count('coarse.streamed' if streamed else 'coarse.materialized')
+    v_paths, scores = _k_best_tracks(desc_a, desc_v, nb, streamed, mark)
     margin = _coarse_margin(scores, a_mask, nb)
 
     blocks = torch.arange(nb, dtype=torch.int32, device=dev) * BLOCK

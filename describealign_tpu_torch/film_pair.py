@@ -7,7 +7,8 @@ narration inserts of 15 s. It makes the (5, frames) feature streams
 directly, since synthesizing ~3 GB of 44.1 kHz PCM would dominate a run and
 prove nothing about the matcher. Npad 1,290,240, so the coarse score map
 has nb x kv = 6,143 x 61,438 = 377.4 M elements, above COARSE_STREAM_ELEMS:
-the first input that takes the streamed coarse DP.
+the first input that takes the streamed coarse DP on the CPU, and on a card
+whose free memory cannot hold the materialized map.
 
 The arithmetic is chosen to give the same bits on every machine, so a
 checksum written beside the JAX package's result can refuse a pair that

@@ -93,6 +93,57 @@ def test_streamed_dp_matches_materialized_on_card(cuda_device):
     assert [float(x) for x in s_scores] == [float(x) for x in m_scores]
 
 
+def test_the_film_materializes_on_card(cuda_device, monkeypatch):
+    """The 95-min film's feature pair through align(): its map (377.4 M
+    elements, above COARSE_STREAM_ELEMS) fits an 80-GB card, so the coarse
+    pass runs materialized; with the card reported full it runs streamed,
+    and both give the same answer, with bit-equal coarse paths, track
+    scores and margin."""
+    import contextlib
+    import io
+    from describealign_tpu_torch import film_pair
+    from describealign_tpu_torch.alignment import api
+    from describealign_tpu_torch.alignment import matching as tm
+    video, audio = film_pair.build_film_features()
+    k_best, coarse_margin = tm._k_best_tracks, tm._coarse_margin
+    runs = []
+
+    def recorded_k_best(desc_a, desc_v, nb, streamed, mark=None):
+        paths, scores = k_best(desc_a, desc_v, nb, streamed, mark)
+        runs.append({'streamed': streamed,
+                     'paths': [p.cpu() for p in paths],
+                     'scores': [float(x) for x in scores]})
+        return paths, scores
+
+    def recorded_margin(scores, a_mask, nb):
+        margin = coarse_margin(scores, a_mask, nb)
+        runs[-1]['margin'] = float(margin)
+        return margin
+
+    monkeypatch.setattr(tm, '_k_best_tracks', recorded_k_best)
+    monkeypatch.setattr(tm, '_coarse_margin', recorded_margin)
+
+    def align():
+        with contextlib.redirect_stdout(io.StringIO()):
+            return api.align(video, audio, video[0], audio[0],
+                             device=cuda_device)
+
+    materialized = align()
+    total = torch.cuda.mem_get_info(cuda_device)[1]
+    monkeypatch.setattr(torch.cuda, 'mem_get_info',
+                        lambda device=None: (0, total))
+    monkeypatch.setattr(torch.cuda, 'memory_reserved',
+                        torch.cuda.memory_allocated)
+    streamed = align()
+    assert [r['streamed'] for r in runs] == [False, True]
+    m, s = runs
+    assert all(torch.equal(a, b) for a, b in zip(m['paths'], s['paths']))
+    assert m['scores'] == s['scores'] and m['margin'] == s['margin']
+    assert m['margin'] > tm.COARSE_MARGIN_FLOOR
+    for a, b in zip(materialized, streamed):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
 def test_dp_kernels_match_plain_on_card(cuda_device):
     """dp_forward / dp_backtrace (csrc/coarse_dp.cu) against the plain
     loops on tie-heavy maps: bit-equal rows, equal paths, one launch

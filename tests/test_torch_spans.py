@@ -1,8 +1,9 @@
 """The port's spans and counters (describealign_tpu_torch/utils/spans.py)
 on the CPU: recorded only under torch.profiler, one request id per call,
 nested per thread, on the profiler's clock, handed to the batch's pool
-threads, counting the retry and the pairs whose features the device
-computes (staged and uploaded apart); the ring's bound.
+threads, counting the retry, the pairs whose features the device
+computes (staged and uploaded apart) and each coarse pass's branch; the
+ring's bound.
 
 The pair is tests/test_torch_batch.py's retry pair (40 s of content, 3 s
 of narration); a confidence floor above any margin forces the retry.
@@ -160,7 +161,9 @@ def test_a_forced_retry_is_spanned_and_counted(pair, monkeypatch):
         api.align_from_pcm(*pair, device='cpu')
     snap = spans.snapshot()
     (req,) = snap['requests']
-    assert snap['counters'] == {req: {'retry.low_margin': 1}}
+    # the first coarse pass and the retry's
+    assert snap['counters'] == {req: {'retry.low_margin': 1,
+                                      'coarse.materialized': 2}}
     (retry,) = [s for s in snap['spans'] if s.name == 'tail.retry']
     inside = {s.name for s in snap['spans'] if s.parent == retry.id}
     assert {'features.upload', 'match', 'tail.lis', 'tail.fetch'} <= inside
@@ -173,7 +176,8 @@ def test_device_features_are_staged_uploaded_and_counted(pair):
     records = snap['spans']
     _check_nesting(records)
     (req,) = snap['requests']
-    assert snap['counters'] == {req: {'features.device': 1}}
+    assert snap['counters'] == {req: {'features.device': 1,
+                                      'coarse.materialized': 1}}
     root = next(s for s in records if s.name == 'align')
     names = [s.name for s in sorted(records, key=lambda s: s.t0_ns)
              if s.parent == root.id]
@@ -193,7 +197,7 @@ def test_device_features_counted_once_per_pair_of_a_batch(pair):
     pairs = [r.id for r in snap['requests'].values() if r.name == 'pair']
     assert len(pairs) == 3
     assert {i: snap['counters'].get(i) for i in pairs} == {
-        i: {'features.device': 1} for i in pairs}
+        i: {'features.device': 1, 'coarse.materialized': 1} for i in pairs}
     (batch,) = [r.id for r in snap['requests'].values()
                 if r.name == 'batch']
     assert batch not in snap['counters']
@@ -212,6 +216,31 @@ def test_the_host_route_neither_stages_nor_counts_device_features(pair):
     assert 'features.stage' not in {s.name for s in snap['spans']}
     assert not any('features.device' in c
                    for c in snap['counters'].values())
+
+
+@pytest.mark.parametrize('limit,branch', [(None, 'coarse.materialized'),
+                                          (0, 'coarse.streamed')])
+def test_each_coarse_pass_counts_its_branch(pair, monkeypatch, limit,
+                                            branch):
+    """One count of coarse.streamed or coarse.materialized a coarse pass,
+    on the request it serves: an alignment's, each pair's of a batch (the
+    threshold cut to 0 puts every pass on the streamed branch)."""
+    if limit is not None:
+        monkeypatch.setattr(matching, 'COARSE_STREAM_ELEMS', limit)
+    with _profile():
+        api.align_from_pcm(*pair, device='cpu')
+        api.align_batch_from_pcm([pair] * 2, device='cpu', host_workers=1)
+    snap = spans.snapshot()
+    requests = snap['requests'].values()
+    served = [r.id for r in requests if r.name in ('align', 'pair')]
+    assert len(served) == 3
+    for i in served:
+        counts = snap['counters'][i]
+        assert counts[branch] == 1
+        assert not {'coarse.streamed', 'coarse.materialized'} - {branch} \
+            & set(counts)
+    (batch,) = [r.id for r in requests if r.name == 'batch']
+    assert batch not in snap['counters']
 
 
 def test_the_ring_drops_the_oldest_and_counts_them():
